@@ -1,0 +1,434 @@
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no final line):
+
+1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+             with nvcc for sm_90a; print the build time and the card.
+2. kernels — every kernel of the main path against its plain PyTorch version
+             on the card, at the main path's shapes, with stated tolerances;
+             the LSTM step's autograd.Function gradients against autograd of
+             the plain cell; times of kernel, plain version and library call.
+3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
+             (hidden 128) on CUDA with the launch counters reset before and
+             read after: every kernel must have launched, and Table II must
+             be finite and inside the system test's bounds.
+4. profile — one anchored SGD step at the main path's width: host time with
+             and without the backward, device kernels by name and the
+             device's idle share (``torch.profiler``).
+5. agree   — a small run on CUDA (kernels) and on the CPU (plain versions)
+             from the same initial weights: Table II must agree.
+
+The second-to-last lines are the kernels JSON object and the card's name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet) for the least-time bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# examples/solar_forecasting.py's default run at the full SolarLSTMConfig
+# width, with epochs cut from 3 to 2 (see MAIN_PATH_CUT)
+MAIN_PATH = dict(hidden=128, n_sites=6, n_days=40, rounds=2, epochs=2,
+                 n_independent=2, seed=0)
+MAIN_PATH_CUT = ("epochs cut 3 -> 2: at 3 the run took 511 s of the smoke's "
+                 "1200 s on an H100 (host-bound); hidden stays 128")
+AGREE_RUN = dict(hidden=16, n_sites=4, n_days=14, rounds=1, epochs=2,
+                 n_independent=1, seed=0)
+AGREE_PP = 0.1          # Table II agreement, percentage points
+SOLAR_PARAMS = 141_953  # parameters of the forecaster at hidden 128
+
+KERNEL_META = {
+    "fedavg_agg": ("src/repro_torch/kernels/csrc/fedavg_agg.cu",
+                   "src/repro/kernels/fedavg_agg/fedavg_agg.py:34"),
+    "lstm_cell": ("src/repro_torch/kernels/csrc/lstm_cell.cu",
+                  "src/repro/kernels/lstm_cell/lstm_cell.py:43"),
+    "ewc_update": ("src/repro_torch/kernels/csrc/ewc_update.cu",
+                   "src/repro/kernels/ewc_update/ewc_update.py:39"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Mean time of one call, back to back, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------ phase 1
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    path = build.build()
+    build.library()
+    print(f"[build] {path.name} ready in {time.perf_counter() - t0:.1f} s")
+    log = build.BUILD_DIR / "build.log"
+    if log.is_file():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print(f"[build] {line.strip()}")
+    print(f"[build] card: {card_line()}")
+
+
+# ------------------------------------------------------------------ phase 2
+def check_fedavg(dev, gen):
+    import torch
+    from repro_torch.core.aggregation import _pad_pow2
+    from repro_torch.kernels.fedavg_agg import ops
+    from repro_torch.kernels.fedavg_agg.ref import agg_ref
+
+    t = SOLAR_PARAMS
+    err = 0.0
+    for n in (2, 3, 4, 32):
+        x = torch.randn(n, t, generator=gen, device=dev)
+        w = torch.rand(n, generator=gen, device=dev)
+        ws = (w / w.sum()).tolist()
+        ref = agg_ref(x, ws)
+        err = max(err, (ops.aggregate_flat(x, ws) - ref).abs().max().item())
+        # zero-weight power-of-two padding must not move the result
+        rows, pws = _pad_pow2(list(x), ws)
+        padded = ops.aggregate_flat(torch.stack(rows), pws)
+        err = max(err, (padded - ref).abs().max().item())
+    require(err <= 1e-6, f"fedavg_agg max abs err {err} > 1e-6")
+    x = torch.randn(2, t, generator=gen, device=dev)
+    ws = [0.375, 0.625]
+    w_row = torch.tensor([ws], device=dev)
+    nbytes, flops = (2 * t + t) * 4, 2 * 2 * t
+    bms, by = bound(nbytes, flops)
+    return {"max_abs_err": err, "shape": f"N=2, T={t}",
+            "ms": cuda_ms(lambda: ops.aggregate_flat(x, ws)),
+            "plain_ms": cuda_ms(lambda: agg_ref(x, ws)),
+            "library_ms": cuda_ms(lambda: torch.matmul(w_row, x)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def lstm_inputs(dev, gen, b, i, h):
+    import torch
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    return (r(b, i), r(b, h), r(b, h), r(i, 4 * h, scale=0.1),
+            r(h, 4 * h, scale=0.1), r(4 * h, scale=0.1))
+
+
+def check_lstm(dev, gen):
+    import torch
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+    hid = 128
+    err = 0.0
+    for b in (1, 7, 8, 26):
+        for i in (9, 10):
+            args = lstm_inputs(dev, gen, b, i, hid)
+            hk, ck = ops.lstm_step(*args)
+            hr, cr = lstm_cell_ref(*args)
+            err = max(err, (hk - hr).abs().max().item(),
+                      (ck - cr).abs().max().item())
+    require(err <= 1e-5, f"lstm_cell max abs err {err} > 1e-5")
+
+    # the autograd.Function on CUDA against autograd of the plain cell
+    args = [a.requires_grad_() for a in lstm_inputs(dev, gen, 8, 10, hid)]
+    wts = (torch.randn(8, hid, generator=gen, device=dev),
+           torch.randn(8, hid, generator=gen, device=dev))
+    hk, ck = ops.LSTMCellFn.apply(*args)
+    gk = torch.autograd.grad((hk * wts[0]).sum() + (ck * wts[1]).sum(), args)
+    hr, cr = lstm_cell_ref(*args)
+    gr = torch.autograd.grad((hr * wts[0]).sum() + (cr * wts[1]).sum(), args)
+    gerr = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+               for a, b in zip(gk, gr, strict=True))
+    require(gerr <= 1e-5, f"LSTMCellFn gradients off by {gerr} beyond "
+                          "rtol 1e-4")
+    print(f"[kernels] LSTMCellFn grads vs autograd of the plain cell: "
+          f"max(|d| - 1e-4*|ref|) = {gerr:.3e} (limit 1e-5)")
+
+    b, i = 8, 10
+    x, h, c, wx, wh, bias = lstm_inputs(dev, gen, b, i, hid)
+    w_ih, w_hh = wx.T.contiguous(), wh.T.contiguous()
+    b_ih = bias.clone()
+    b_ih[hid:2 * hid] += 1.0          # the reference's +1 forget-gate bias
+    b_hh = torch.zeros_like(bias)
+    hl, cl = torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)
+    hk, ck = ops.lstm_step(x, h, c, wx, wh, bias)
+    require(max((hl - hk).abs().max().item(), (cl - ck).abs().max().item())
+            <= 1e-5, "torch.lstm_cell yardstick computes another function")
+    nbytes = 4 * (b * i + 2 * b * hid + (i + hid) * 4 * hid + 4 * hid
+                  + 2 * b * hid)
+    flops = 2 * b * (i + hid) * 4 * hid
+    bms, by = bound(nbytes, flops)
+    return {"max_abs_err": err, "shape": f"B={b}, I={i}, H={hid}",
+            "ms": cuda_ms(lambda: ops.lstm_step(x, h, c, wx, wh, bias)),
+            "plain_ms": cuda_ms(lambda: lstm_cell_ref(x, h, c, wx, wh, bias)),
+            "library_ms": cuda_ms(
+                lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def check_ewc(dev, gen):
+    import torch
+    from repro_torch.kernels.ewc_update import ops
+    from repro_torch.kernels.ewc_update.ref import ewc_ref
+
+    t = SOLAR_PARAMS
+    lam = 0.05
+    err = 0.0
+    g, p, a = (torch.randn(t, generator=gen, device=dev) for _ in range(3))
+    for fisher in (None, torch.randn(t, generator=gen, device=dev).abs()):
+        go, loss = ops.ewc_penalty_grad_flat(lam, g, p, a, fisher)
+        gr, lr = ewc_ref(lam, g, p, a, fisher)
+        torch.testing.assert_close(go, gr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(loss, lr, rtol=1e-4, atol=0.0)
+        err = max(err, (go - gr).abs().max().item())
+    nbytes, flops = 4 * (3 * t + t), 5 * t
+    bms, by = bound(nbytes, flops)
+    return {"max_abs_err": err, "shape": f"T={t}, F=None",
+            "ms": cuda_ms(lambda: ops.ewc_penalty_grad_flat(lam, g, p, a)),
+            "plain_ms": cuda_ms(lambda: ewc_ref(lam, g, p, a)),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def phase_kernels(dev) -> dict:
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for name, check in (("fedavg_agg", check_fedavg), ("lstm_cell", check_lstm),
+                        ("ewc_update", check_ewc)):
+        res = check(dev, gen)
+        torch.cuda.synchronize()
+        print(f"[kernels] {name} ({res['shape']}): max_abs_err "
+              f"{res['max_abs_err']:.3e}, kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms, library {res['library_ms']} ms, "
+              f"bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+        results[name] = res
+    return results
+
+
+# ------------------------------------------------------------------ phase 3
+def check_table(report, what):
+    for name, row in report["table2"].items():
+        require(all(math.isfinite(v) for v in row.values()),
+                f"{what}: non-finite Table II row {name}")
+        require(row["mean_error_power"] < 30.0,
+                f"{what}: {name} power error {row['mean_error_power']}")
+        require(row["mean_error_energy"] < 40.0,
+                f"{what}: {name} energy error {row['mean_error_energy']}")
+    for name, row in report["independent"].items():
+        require(all(math.isfinite(v) for v in row.values()),
+                f"{what}: non-finite §IV.E row {name}")
+
+
+def print_report(report):
+    for name, row in report["table2"].items():
+        print(f"[main] table2 {name:22s} power {row['mean_error_power']:.4f}% "
+              f"energy {row['mean_error_energy']:.4f}% day-power "
+              f"{row['mean_error_day_power']:.4f}%")
+    for name, row in report["independent"].items():
+        deg = row["mean_error_power"] - \
+            report["table2"][name]["mean_error_power"]
+        print(f"[main] §IV.E  {name:22s} power {row['mean_error_power']:.4f}% "
+              f"(degradation {deg:+.4f} pp)")
+    print(f"[main] async_stats {json.dumps(report['async_stats'])}")
+
+
+def phase_main(dev) -> dict:
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.fed_solar import run_fedccl_solar
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = run_fedccl_solar(device=dev, **MAIN_PATH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"[main] {MAIN_PATH_CUT}")
+    print(f"[main] run_fedccl_solar({MAIN_PATH}) on {dev}: {wall:.1f} s")
+    print_report(report)
+    print(f"[main] launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        require(n > 0, f"kernel {name} never launched on the main path")
+    check_table(report, "main path")
+    return counts
+
+
+# ------------------------------------------------------------------ phase 4
+def phase_profile(dev):
+    """Where one anchored SGD step of the main path spends its time: host
+    clock per step (with and without the backward), and the device's
+    kernels by name from ``torch.profiler``, with the device's busy share
+    of the profiled window."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.continual import EWCState
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.training.fed_solar import make_solar_fns
+    from repro_torch.utils.tree import flatten_params
+
+    cfg = SolarLSTMConfig(hidden_size=MAIN_PATH["hidden"])
+    fc = SolarForecaster(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = fc.init(torch.Generator().manual_seed(0), dev)
+    batch = {"history": torch.rand(8, cfg.history_steps, cfg.history_channels,
+                                   generator=gen, device=dev),
+             "forecast": torch.rand(8, cfg.horizon_steps,
+                                    cfg.forecast_channels, generator=gen,
+                                    device=dev),
+             "target": torch.rand(8, cfg.horizon_steps, generator=gen,
+                                  device=dev)}
+    anchor = EWCState(flatten_params(params), None, 0.05)
+    sgd_step, predict = make_solar_fns(fc, lr=1e-2)
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    step_ms = host_ms(lambda: sgd_step(params, batch, anchor))
+    fwd_ms = host_ms(lambda: predict(params, batch["history"],
+                                     batch["forecast"]))
+    print(f"[profile] anchored SGD step (B=8, H={cfg.hidden_size}): "
+          f"{step_ms:.2f} ms on the host clock; forward alone {fwd_ms:.2f} ms")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sgd_step(params, batch, anchor)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("[profile] the profiler recorded no device time")
+        return
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        slot = by_name.setdefault(e.name, [0, 0.0])
+        slot[0] += 1
+        slot[1] += e.time_range.elapsed_us()
+    busy_us = sum(v[1] for v in by_name.values())
+    print(f"[profile] one step: {wall_us / 1e3:.2f} ms wall, {len(kernels)} "
+          f"device kernels, {busy_us / 1e3:.3f} ms device busy, idle share "
+          f"{1.0 - busy_us / wall_us:.4f}")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+
+
+# ------------------------------------------------------------------ phase 5
+def phase_agree(dev):
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.training.fed_solar import run_fedccl_solar
+    from repro_torch.utils.tree import params_to_numpy
+
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=AGREE_RUN["hidden"]))
+    init = params_to_numpy(fc.init(torch.Generator().manual_seed(1), "cpu"))
+    gpu = run_fedccl_solar(device=dev, init_params=init, **AGREE_RUN)
+    cpu = run_fedccl_solar(device="cpu", init_params=init, **AGREE_RUN)
+    require(gpu["clusters"] == cpu["clusters"], "clusters differ")
+    require(gpu["async_stats"] == cpu["async_stats"], "async_stats differ")
+    gap = max(abs(gpu[tab][col][k] - cpu[tab][col][k])
+              for tab in ("table2", "independent")
+              for col in gpu[tab] for k in gpu[tab][col])
+    print(f"[agree] {AGREE_RUN}: CUDA kernels vs CPU plain versions, "
+          f"max Table II / §IV.E gap {gap:.3e} pp (limit {AGREE_PP})")
+    require(gap <= AGREE_PP, f"CUDA and CPU runs differ by {gap} pp")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (REPO / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    try:
+        phase_build()
+        results = phase_kernels(dev)
+        counts = phase_main(dev)
+        phase_profile(dev)
+        phase_agree(dev)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": results[name]["max_abs_err"],
+                "ms": results[name]["ms"],
+                "plain_ms": results[name]["plain_ms"],
+                "bound_ms": results[name]["bound_ms"],
+                "bound_by": results[name]["bound_by"],
+                "library_ms": results[name]["library_ms"],
+                "shape": results[name]["shape"]}
+               for name, (src, replaces) in KERNEL_META.items()]
+    print(f"[done] {time.perf_counter() - t0:.1f} s in all")
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""FedCCL facade: wires clustering, store, protocol, continual learning and
+the runtime into one object — the library's main entry point.
+
+    fed = FedCCL(FedCCLConfig(...), init_params, train_fn, device="cuda")
+    fed.setup(client_specs)          # pre-training DBSCAN clustering
+    fed.run(rounds=5)                # async training under the sim runtime
+    keys, params = fed.join(new_spec)  # Predict & Evolve for a new client
+
+This slice of the port runs the single-lock ``ModelStore`` under the
+deterministic sim runtime.  The other topologies, runtimes and the privacy
+and telemetry layers of the reference arrive with later slices (see
+ROADMAP.md); asking for them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.core.clustering import IncrementalDBSCAN
+from repro_torch.core.predict_evolve import ClusterSpace, PredictEvolve
+from repro_torch.core.protocol import Client, ClientSpec
+from repro_torch.core.runtime_sim import AsyncSimRuntime
+from repro_torch.core.store import ModelStore
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_map
+
+
+@dataclass(frozen=True)
+class ClusterSpaceConfig:
+    name: str                       # must match a static_features key
+    eps: float
+    min_samples: int = 3
+    metric: str = "euclidean"
+
+
+@dataclass(frozen=True)
+class FedCCLConfig:
+    spaces: tuple = (
+        ClusterSpaceConfig("loc", eps=150.0, min_samples=3, metric="haversine"),
+        ClusterSpaceConfig("ori", eps=25.0, min_samples=3, metric="cyclic"),
+    )
+    ewc_lambda: float = 0.0          # continual-learning anchor strength
+    runtime: str = "sim"             # "sim" ("threaded": later slice)
+    seed: int = 0
+    dropout_prob: float = 0.0        # client-unavailability resilience knob
+    batch_aggregation: bool = False  # coalescing server path (queue + drain)
+    max_coalesce: int = 16           # max queued updates folded per drain
+    # ---- later slices: setting any of these raises NotImplementedError
+    server_shards: int = 0
+    server_processes: int = 0
+    server_hosts: tuple = ()
+    fetch_from_workers: bool = False
+    dp_clip: float | None = None
+    dp_noise_multiplier: float = 1.0
+    secure_agg: bool = False
+    target_delta: float = 1e-5
+    telemetry: bool = False
+
+
+# (what was asked for, is it set, the slice of ROADMAP.md's module queue
+# that brings it)
+_LATER_SLICES = (
+    ("runtime='threaded'", lambda c: c.runtime == "threaded",
+     "threaded runtime"),
+    ("server_shards", lambda c: c.server_shards > 0,
+     "scale-out server tiers"),
+    ("server_processes", lambda c: c.server_processes > 0,
+     "scale-out server tiers"),
+    ("server_hosts", lambda c: bool(c.server_hosts),
+     "scale-out server tiers"),
+    ("fetch_from_workers", lambda c: c.fetch_from_workers,
+     "scale-out server tiers (read tier)"),
+    ("dp_clip", lambda c: c.dp_clip is not None, "privacy"),
+    ("secure_agg", lambda c: c.secure_agg, "privacy"),
+    ("telemetry", lambda c: c.telemetry, "telemetry"),
+)
+
+
+class FedCCL:
+    def __init__(self, cfg: FedCCLConfig, init_params, train_fn, *,
+                 device=None):
+        for what, is_set, slice_name in _LATER_SLICES:
+            if is_set(cfg):
+                raise NotImplementedError(
+                    f"{what} is not ported to repro_torch yet; it arrives "
+                    f"with the '{slice_name}' slice of ROADMAP.md's module "
+                    "queue")
+        if cfg.runtime != "sim":
+            raise ValueError(f"unknown runtime {cfg.runtime!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.train_fn = train_fn
+        # `.to` returns the same tensor when it already lies on the device;
+        # sharing it is safe because nothing updates parameters in place
+        init_params = tree_map(lambda x: x.to(self.device), init_params)
+        self.store = ModelStore(init_params,
+                                batch_aggregation=cfg.batch_aggregation,
+                                max_coalesce=cfg.max_coalesce)
+        self.spaces = [
+            ClusterSpace(s.name, IncrementalDBSCAN(s.eps, s.min_samples, s.metric))
+            for s in cfg.spaces]
+        self.pe = PredictEvolve(self.spaces, self.store)
+        self.clients: list[Client] = []
+        self._clients_by_id: dict[str, Client] = {}
+        self._init_params = init_params
+        self._runtime = None
+
+    # ----------------------------------------------------------------- setup
+    def setup(self, specs: list[ClientSpec]) -> dict[str, list[str]]:
+        assignments = self.pe.bootstrap(specs)
+        for i, spec in enumerate(specs):
+            c = Client(spec=spec,
+                       cluster_keys=assignments[spec.client_id],
+                       train_fn=self.train_fn,
+                       ewc_lambda=self.cfg.ewc_lambda,
+                       rng=np.random.default_rng(self.cfg.seed + 1000 + i))
+            c.local_params = self._init_params
+            self.clients.append(c)
+            self._clients_by_id[spec.client_id] = c
+        return assignments
+
+    # ------------------------------------------------------------------- run
+    def run(self, rounds: int = 1):
+        rt = AsyncSimRuntime(self.clients, self.store, seed=self.cfg.seed,
+                             dropout_prob=self.cfg.dropout_prob)
+        rt.run(rounds)
+        self._runtime = rt
+        return rt.stats()
+
+    # ----------------------------------------------------- Predict & Evolve
+    def join(self, spec: ClientSpec) -> tuple[list[str], object]:
+        """New client: immediate specialized model, then becomes participant."""
+        keys, params = self.pe.join(spec)
+        idx = len(self.clients)
+        c = Client(spec=spec, cluster_keys=keys, train_fn=self.train_fn,
+                   ewc_lambda=self.cfg.ewc_lambda,
+                   rng=np.random.default_rng(self.cfg.seed + 5000 + idx))
+        c.local_params = params
+        self.clients.append(c)
+        self._clients_by_id[spec.client_id] = c
+        return keys, params
+
+    # --------------------------------------------------------------- privacy
+    def privacy_report(self) -> dict:
+        """The reference's report with privacy off (the only setting this
+        slice runs): no (epsilon, delta) budgets, no secure rounds."""
+        return {
+            "dp": {
+                "enabled": False,
+                "clip": None,
+                "noise_multiplier": self.cfg.dp_noise_multiplier,
+                "target_delta": self.cfg.target_delta,
+            },
+            "secure_agg": {"enabled": False, "rounds": 0,
+                           "dropout_recoveries": 0},
+        }
+
+    # ------------------------------------------------------------- inference
+    def model_for(self, client_id: str, level: str = "auto"):
+        client = self._clients_by_id.get(client_id)
+        if client is None:
+            known = sorted(self._clients_by_id)
+            shown = ", ".join(repr(k) for k in known[:8])
+            if len(known) > 8:
+                shown += f", ... ({len(known)} clients total)"
+            raise KeyError(f"unknown client_id {client_id!r}; "
+                           f"known clients: [{shown}]")
+        if level == "local":
+            return client.local_params, "local"
+        if level == "global":
+            return self.store.params("global"), "global"
+        if level.startswith("cluster"):
+            if ":" in level:
+                key = level.split(":", 1)[1]
+            elif client.cluster_keys:
+                key = client.cluster_keys[0]
+            else:
+                # noise client (DBSCAN label -1): no cluster model exists,
+                # fall back to the global tier instead of crashing
+                return self.store.params("global"), "global"
+            return self.store.params("cluster", key), f"cluster:{key}"
+        return self.pe.choose_inference_model(client)

@@ -1,0 +1,131 @@
+"""Deterministic asynchronous runtime: virtual-time event simulation.
+
+Reproduces the paper's asynchrony (heterogeneous client speeds, staleness,
+lock contention) deterministically: a client FETCHes a model snapshot at
+virtual time t, "trains" for a duration drawn from its speed, and SUBMITs at
+t + d — by which time other clients may have updated the same model, which
+exercises the weighted-aggregation path rather than the sequential fast
+path.  Seeded through numpy exactly as the reference, so the same seed gives
+the same schedule in both packages.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.core.protocol import Client
+from repro_torch.core.store import ModelStore
+
+
+@dataclass(order=True)
+class _Event:
+    time: float
+    seq: int
+    kind: str = field(compare=False)          # "round_start" | "submit"
+    client_idx: int = field(compare=False)
+    payload: object = field(compare=False, default=None)
+
+
+class AsyncSimRuntime:
+    def __init__(self, clients: list[Client], store: ModelStore, *,
+                 seed: int = 0, mean_round_time: float = 1.0,
+                 jitter: float = 0.3, dropout_prob: float = 0.0):
+        self.clients = clients
+        self.store = store
+        self.rng = np.random.default_rng(seed)
+        self.mean_round_time = mean_round_time
+        self.jitter = jitter
+        self.dropout_prob = dropout_prob
+        self._heap: list[_Event] = []
+        self._seq = itertools.count()
+        self.now = 0.0
+        self.completed_rounds = {c.spec.client_id: 0 for c in clients}
+        self.staleness_log: list[int] = []     # rounds-behind at submit time
+
+    # ------------------------------------------------------------------ sim
+    def _duration(self, client: Client) -> float:
+        base = self.mean_round_time / max(client.spec.speed, 1e-6)
+        return float(base * self.rng.uniform(1 - self.jitter, 1 + self.jitter))
+
+    def _push(self, ev_time, kind, client_idx, payload=None):
+        heapq.heappush(self._heap,
+                       _Event(ev_time, next(self._seq), kind, client_idx, payload))
+
+    def run(self, rounds_per_client: int):
+        """Each client performs `rounds_per_client` full Alg.1 rounds.
+
+        With ``store.batch_aggregation`` submits enqueue instead of
+        aggregating inline; queued updates are drained (coalesced into one
+        N-way aggregation per model) right before anyone re-reads the model
+        — at fetch time — and whenever a queue hits ``max_coalesce``.
+        """
+        batched = self.store.batch_aggregation
+        for i, c in enumerate(self.clients):
+            self._push(self._duration(c) * self.rng.uniform(0, 1), "round_start", i)
+
+        target = rounds_per_client
+        while self._heap:
+            ev = heapq.heappop(self._heap)
+            self.now = ev.time
+            client = self.clients[ev.client_idx]
+
+            if ev.kind == "round_start":
+                if self.completed_rounds[client.spec.client_id] >= target:
+                    continue
+                if self.dropout_prob and self.rng.random() < self.dropout_prob:
+                    # client temporarily unavailable: retry later (resilience)
+                    self._push(self.now + self._duration(client), "round_start",
+                               ev.client_idx)
+                    continue
+                # local training happens on-device, immediately
+                client.train_local()
+                # fetch snapshots NOW; training completes after a delay
+                jobs = []
+                for key in client.cluster_keys:
+                    if batched:
+                        self.store.drain("cluster", key)
+                    p, m = client.fetch(self.store, "cluster", key)
+                    jobs.append(("cluster", key, p, m))
+                if batched:
+                    self.store.drain("global")
+                p, m = client.fetch(self.store, "global", None)
+                jobs.append(("global", None, p, m))
+                self._push(self.now + self._duration(client), "submit",
+                           ev.client_idx, jobs)
+
+            elif ev.kind == "submit":
+                for level, key, p, m in ev.payload:
+                    new_p, new_meta, delta = client.train_update(p, m)
+                    # staleness vs the round at enqueue time: queued-but-
+                    # undrained updates count (in batched mode the
+                    # materialized meta lags the logical server round)
+                    cur_round = self.store.effective_round(level, key)
+                    self.staleness_log.append(cur_round - m.round)
+                    client.submit(self.store, level, key, new_p, new_meta, delta)
+                    if batched and (self.store.pending_depth(level, key)
+                                    >= self.store.max_coalesce):
+                        self.store.drain(level, key)
+                self.completed_rounds[client.spec.client_id] += 1
+                if self.completed_rounds[client.spec.client_id] < target:
+                    self._push(self.now + 1e-3, "round_start", ev.client_idx)
+        if batched:
+            self.store.drain_all()
+
+    # ------------------------------------------------------------- reporting
+    def stats(self) -> dict:
+        sl = np.array(self.staleness_log) if self.staleness_log else np.zeros(1)
+        out = {
+            "virtual_time": self.now,
+            "updates": self.store.n_updates,
+            "fast_path_frac": (self.store.n_fast_path / max(self.store.n_updates, 1)),
+            "mean_staleness": float(sl.mean()),
+            "max_staleness": int(sl.max()),
+        }
+        if self.store.batch_aggregation:
+            out["coalesce_factor"] = self.store.coalesce_factor()
+            out["max_queue_depth"] = self.store.max_queue_depth
+        return out

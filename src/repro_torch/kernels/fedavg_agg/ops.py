@@ -1,0 +1,56 @@
+"""Public wrappers of the N-way fold: flatten parameter trees, stack, fold,
+unflatten.  Every weighted sum of ``core/aggregation.py`` goes through
+``aggregate_pytrees``: CUDA tensors launch ``csrc/fedavg_agg.cu``, CPU
+tensors run ``ref.agg_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fedavg_agg.ref import agg_ref
+from repro_torch.utils.tree import flatten_params, unflatten_params
+
+MAX_N = 64          # FEDAVG_MAX_N in csrc/fedavg_agg.cu (weights by value)
+launches = 0
+
+
+def aggregate_flat(stacked: torch.Tensor, weights) -> torch.Tensor:
+    """stacked: (N, T) f32; weights: N floats -> (T,) f32 weighted sum."""
+    if not build.on_cuda("fedavg_agg", stacked):
+        return agg_ref(stacked, weights)
+    global launches
+    build.require_f32_contiguous("fedavg_agg", stacked=stacked)
+    if stacked.dim() != 2:
+        raise ValueError(f"fedavg_agg: stacked must be (N, T), got "
+                         f"{tuple(stacked.shape)}")
+    n, t = stacked.shape
+    ws = [float(w) for w in weights]
+    if len(ws) != n:
+        raise ValueError(f"fedavg_agg: {n} rows vs {len(ws)} weights")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"fedavg_agg: N = {n} outside [1, {MAX_N}]")
+    out = torch.empty(t, dtype=torch.float32, device=stacked.device)
+    if t == 0:
+        return out
+    status = build.library().fedavg_agg_launch(
+        stacked.data_ptr(), (ctypes.c_float * n)(*ws), n, t, out.data_ptr(),
+        build.stream_handle(stacked.device))
+    build.check(status, "fedavg_agg")
+    launches += 1
+    return out
+
+
+def aggregate_pytrees(trees: list, weights: list):
+    """Weighted sum of N identically-structured parameter trees."""
+    if not trees:
+        raise ValueError("aggregate_pytrees needs at least one pytree")
+    if len(trees) != len(weights):
+        raise ValueError(f"{len(trees)} pytrees vs {len(weights)} weights")
+    if len(trees) == 1 and float(weights[0]) == 1.0:
+        return trees[0]         # identity combination: skip the round trip
+    stacked = torch.stack([flatten_params(t) for t in trees])
+    return unflatten_params(aggregate_flat(stacked, weights), trees[0])

@@ -1,0 +1,67 @@
+"""Parameter trees: nested dicts of tensors with the JAX package's key names.
+
+Leaf order is JAX's: ``jax.tree.leaves`` visits dict keys in sorted order,
+while Python dicts keep insertion order (the solar schema inserts
+``encoder, decoder, head_w, head_b`` and ``wx, wh, b``).  Every flat
+vector in the port is laid out in the sorted order, so it lines up with the
+reference's ``flatten_params`` element for element.
+
+The weights bridge (``params_from_numpy`` / ``params_to_numpy``) carries
+parameter trees between the packages as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in JAX's order (dict keys sorted, depth first)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over matching leaves; the result keeps ``tree``'s key order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def flatten_params(tree) -> torch.Tensor:
+    """Concatenate every leaf into one flat f32 vector (kernel-facing layout)."""
+    return torch.cat([x.reshape(-1).to(torch.float32) for x in tree_leaves(tree)])
+
+
+def unflatten_params(flat: torch.Tensor, template):
+    """Inverse of ``flatten_params``: leaves are views of ``flat`` cast to the
+    template's dtypes, in the template's key order."""
+    need = sum(x.numel() for x in tree_leaves(template))
+    if need != flat.numel():
+        raise ValueError(f"flat vector has {flat.numel()} elements, the "
+                         f"template needs {need}")
+    off = 0
+
+    def go(node):
+        nonlocal off
+        if isinstance(node, dict):
+            built = {k: go(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        n = node.numel()
+        leaf = flat[off:off + n].view(node.shape).to(node.dtype)
+        off += n
+        return leaf
+
+    return go(template)
+
+
+def params_from_numpy(tree, device) -> dict:
+    """A tree of numpy arrays (e.g. JAX params through ``np.asarray``) as
+    tensors on ``device``; always copies."""
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device), tree)
+
+
+def params_to_numpy(tree) -> dict:
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)

@@ -1,0 +1,187 @@
+"""The port's kernel wrappers against the JAX package's kernels.
+
+On the CPU every wrapper of ``repro_torch.kernels`` runs its plain PyTorch
+version; the JAX side runs its Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` does.  Inputs come from one seeded numpy
+generator and go through both.  Tolerances are those of
+``tests/test_kernels.py``: atol 1e-5 for the fold and the LSTM step,
+rtol/atol 1e-5 for the anchor gradient with rtol 1e-4 on its loss.
+
+The kernels themselves are held against the plain versions on the card in
+``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ewc_update.ops import ewc_penalty_grad_flat as jax_ewc
+from repro.kernels.fedavg_agg.ops import aggregate_flat as jax_agg_flat
+from repro.kernels.fedavg_agg.ops import aggregate_pytrees as jax_agg_trees
+from repro.kernels.lstm_cell.ops import lstm_cell_fused as jax_lstm_fused
+from repro.models.lstm import lstm_cell as jax_model_cell
+from repro_torch.core.aggregation import _pad_pow2
+from repro_torch.kernels import build, launch_counts, reset_launch_counts
+from repro_torch.kernels.ewc_update.ops import ewc_penalty_grad_flat
+from repro_torch.kernels.ewc_update.ref import ewc_ref
+from repro_torch.kernels.fedavg_agg.ops import aggregate_flat, aggregate_pytrees
+from repro_torch.kernels.fedavg_agg.ref import agg_ref
+from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_cell_fused, lstm_step
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+
+def t32(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+# ------------------------------------------------------------- fedavg_agg
+@pytest.mark.parametrize("n,t", [(2, 17), (2, 8192), (3, 100_000), (8, 4096)])
+def test_agg_plain_matches_jax_kernel(n, t, rng):
+    x = rng.standard_normal((n, t)).astype(np.float32)
+    w = rng.dirichlet(np.ones(n)).astype(np.float32)
+    ref = np.asarray(jax_agg_flat(jnp.asarray(x), jnp.asarray(w)))
+    out = aggregate_flat(t32(x), w.tolist())
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    np.testing.assert_allclose(agg_ref(t32(x), w.tolist()).numpy(), ref,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [3, 5, 17])
+def test_agg_pad_pow2_is_exact(n, rng):
+    """Zero-weight padding to the next power of two leaves the fold
+    bit-unchanged, as the reference's ``_pad_pow2`` promises."""
+    rows = [t32(rng.standard_normal(257)) for _ in range(n)]
+    ws = rng.dirichlet(np.ones(n)).tolist()
+    sets, pws = _pad_pow2(rows, ws)
+    assert len(sets) == 1 << (n - 1).bit_length()
+    plain = aggregate_flat(torch.stack(rows), ws)
+    padded = aggregate_flat(torch.stack(sets), pws)
+    assert torch.equal(plain, padded)
+    ref = np.asarray(jax_agg_flat(jnp.asarray(torch.stack(sets).numpy()),
+                                  jnp.asarray(pws, jnp.float32)))
+    np.testing.assert_allclose(padded.numpy(), ref, atol=1e-5)
+
+
+def test_agg_pytrees_matches_jax(rng):
+    trees_np = [{"b": {"c": rng.standard_normal(11).astype(np.float32)},
+                 "a": rng.standard_normal((5, 7)).astype(np.float32)}
+                for _ in range(3)]
+    w = [0.2, 0.3, 0.5]
+    ref = jax_agg_trees([jax.tree.map(jnp.asarray, t) for t in trees_np], w)
+    out = aggregate_pytrees([{"b": {"c": t32(t["b"]["c"])}, "a": t32(t["a"])}
+                             for t in trees_np], w)
+    assert list(out) == ["b", "a"]            # the template's key order
+    np.testing.assert_allclose(out["a"].numpy(), np.asarray(ref["a"]),
+                               atol=1e-5)
+    np.testing.assert_allclose(out["b"]["c"].numpy(),
+                               np.asarray(ref["b"]["c"]), atol=1e-5)
+
+
+def test_agg_identity_skip_returns_the_tree():
+    tree = {"w": torch.ones(3)}
+    assert aggregate_pytrees([tree], [1.0]) is tree
+
+
+# ------------------------------------------------------------- ewc_update
+@pytest.mark.parametrize("t", [5, 8192, 65536 + 3])
+@pytest.mark.parametrize("lam", [0.1, 1.0, 7.5])
+def test_ewc_plain_matches_jax_kernel(t, lam, rng):
+    g, p, a = (rng.standard_normal(t).astype(np.float32) for _ in range(3))
+    f = np.abs(rng.standard_normal(t)).astype(np.float32)
+    gj, lj = jax_ewc(lam, *(jnp.asarray(v) for v in (g, p, a, f)))
+    go, loss = ewc_penalty_grad_flat(lam, t32(g), t32(p), t32(a), t32(f))
+    np.testing.assert_allclose(go.numpy(), np.asarray(gj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(loss), float(lj), rtol=1e-4)
+
+
+def test_ewc_l2sp_needs_no_fisher(rng):
+    t = 1000
+    g, p, a = (rng.standard_normal(t).astype(np.float32) for _ in range(3))
+    gj, lj = jax_ewc(0.5, jnp.asarray(g), jnp.asarray(p), jnp.asarray(a),
+                     None)
+    go, loss = ewc_penalty_grad_flat(0.5, t32(g), t32(p), t32(a))
+    np.testing.assert_allclose(go.numpy(), np.asarray(gj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(loss), float(lj), rtol=1e-4)
+    go1, l1 = ewc_ref(0.5, t32(g), t32(p), t32(a), torch.ones(t))
+    assert torch.equal(go, go1)
+    np.testing.assert_allclose(float(loss), float(l1), rtol=1e-6)
+
+
+# -------------------------------------------------------------- lstm_cell
+def lstm_case(rng, b, i, h):
+    return (rng.standard_normal((b, i)).astype(np.float32),
+            rng.standard_normal((b, h)).astype(np.float32),
+            rng.standard_normal((b, h)).astype(np.float32),
+            (rng.standard_normal((i, 4 * h)) * .1).astype(np.float32),
+            (rng.standard_normal((h, 4 * h)) * .1).astype(np.float32),
+            (rng.standard_normal(4 * h) * .1).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,I,H", [(1, 5, 64), (8, 10, 128), (13, 32, 256),
+                                   (7, 9, 128), (26, 10, 128)])
+def test_lstm_plain_matches_jax_kernel(B, I, H, rng):
+    x, h, c, wx, wh, b = lstm_case(rng, B, I, H)
+    pj = {"wx": jnp.asarray(wx), "wh": jnp.asarray(wh), "b": jnp.asarray(b)}
+    hj, cj = jax_lstm_fused(pj, jnp.asarray(x), jnp.asarray(h),
+                            jnp.asarray(c))
+    hm, cm = jax_model_cell(pj, jnp.asarray(x), jnp.asarray(h),
+                            jnp.asarray(c))
+    pt = {"wx": t32(wx), "wh": t32(wh), "b": t32(b)}
+    hn, cn = lstm_cell_fused(pt, t32(x), t32(h), t32(c))
+    for got, want in ((hn, hj), (cn, cj), (hn, hm), (cn, cm)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=1e-5)
+
+
+def test_lstm_fn_gradcheck_float64():
+    gen = torch.Generator().manual_seed(0)
+    b, i, h = 3, 4, 5
+    args = [torch.randn(*s, generator=gen, dtype=torch.float64)
+            .mul_(0.5).requires_grad_()
+            for s in ((b, i), (b, h), (b, h), (i, 4 * h), (h, 4 * h),
+                      (4 * h,))]
+    assert torch.autograd.gradcheck(LSTMCellFn.apply, args, eps=1e-6,
+                                    atol=1e-7)
+
+
+def test_lstm_fn_backward_matches_autograd_of_plain_cell(rng):
+    args = [t32(a).requires_grad_() for a in lstm_case(rng, 8, 10, 32)]
+    wh_, wc_ = t32(rng.standard_normal((8, 32))), t32(rng.standard_normal((8, 32)))
+    hk, ck = LSTMCellFn.apply(*args)
+    gk = torch.autograd.grad((hk * wh_).sum() + (ck * wc_).sum(), args)
+    hr, cr = lstm_cell_ref(*args)
+    gr = torch.autograd.grad((hr * wh_).sum() + (cr * wc_).sum(), args)
+    for a, b in zip(gk, gr, strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------- routing
+def test_cpu_calls_run_the_plain_versions_and_count_nothing(rng):
+    reset_launch_counts()
+    x, h, c, wx, wh, b = (t32(a) for a in lstm_case(rng, 2, 3, 4))
+    lstm_step(x, h, c, wx, wh, b)
+    aggregate_flat(torch.stack([x[0], x[1]]), [0.5, 0.5])
+    ewc_penalty_grad_flat(0.1, x[0], x[1], x[0])
+    assert launch_counts() == {"fedavg_agg": 0, "lstm_cell": 0,
+                               "ewc_update": 0}
+
+
+def test_wrappers_refuse_devices_without_a_route():
+    m = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="no route"):
+        aggregate_flat(m, [0.25] * 4)
+    with pytest.raises(ValueError, match="no route"):
+        ewc_penalty_grad_flat(0.1, m[0], m[0], m[0])
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "CUDA_DEFAULT_HOME", tmp_path / "cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
