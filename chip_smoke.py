@@ -12,13 +12,30 @@ Phases, each fatal on failure (non-zero exit, no final line):
              the plain cell; times of kernel, plain version and library call.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
-             read after: every kernel must have launched, and Table II must
-             be finite and inside the system test's bounds.
+             read after: every kernel of the path must have launched, and
+             Table II must be finite and inside the system test's bounds.
 4. profile — one anchored SGD step at the main path's width: host time with
              and without the backward, device kernels by name and the
              device's idle share (``torch.profiler``).
-5. agree   — a small run on CUDA (kernels) and on the CPU (plain versions)
-             from the same initial weights: Table II must agree.
+5. privacy — the same run with DP clipping and noise and pairwise-mask
+             secure aggregation (the committed report's privacy settings),
+             counters reset before and read after: one ``dp_clip_noise``
+             launch per update, one fold per secure round, every client's
+             epsilon equal to the closed form, the non-federated Table II
+             columns inside the bounds.
+6. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
+             from the same initial weights, without privacy, with DP and
+             secure aggregation, and with DP alone (at a smaller clip, see
+             AGREE_DP_CLIP): Table II must agree;
+             DP alone at the privacy path's clip, where Table II is chaotic:
+             every release of the CUDA run against the plain version on the
+             same inputs;
+             and a secure run with dropouts on both, which must recover
+             dropped clients and end with the same parameters.
+
+The script re-executes itself once with ``PYTHONHASHSEED=0``: the solar
+fleet's weather is seeded with ``hash(site_id)`` (``data/solar.py``, as in
+the reference), so a fixed hash seed makes every call run the same data.
 
 The second-to-last lines are the kernels JSON object and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -28,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -40,14 +58,29 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 # examples/solar_forecasting.py's default run at the full SolarLSTMConfig
-# width, with epochs cut from 3 to 2 (see MAIN_PATH_CUT)
-MAIN_PATH = dict(hidden=128, n_sites=6, n_days=40, rounds=2, epochs=2,
+# width, with epochs cut from 3 to 1 (see MAIN_PATH_CUT)
+MAIN_PATH = dict(hidden=128, n_sites=6, n_days=40, rounds=2, epochs=1,
                  n_independent=2, seed=0)
-MAIN_PATH_CUT = ("epochs cut 3 -> 2: at 3 the run took 511 s of the smoke's "
-                 "1200 s on an H100 (host-bound); hidden stays 128")
+MAIN_PATH_CUT = ("epochs cut 3 -> 1: the run is host-bound (511 s at 3 "
+                 "epochs, 252-348 s at 2 on an H100), and it shares the "
+                 "smoke's 1200 s with the privacy path at epochs 2 (359-459 "
+                 "s); hidden stays 128")
+# the committed artifacts/solar_report.json's privacy settings at the full
+# width, with epochs cut from 3 to 2
+PRIVACY_PATH = dict(MAIN_PATH, epochs=2)
+PRIVACY = dict(dp_clip=5.0, dp_noise_multiplier=0.3, secure_agg=True)
+# DP without secure aggregation leaves each update's noise (std m * clip per
+# weight) unaveraged; at clip 5 the federated models are chaotic: the CPU
+# run against itself with the noise moved by 1 ulp drifts by pp
+# (tools/torch_privacy_probe.py --witness).  Clip 0.1 keeps the agree run's
+# noise small and its clip binding; the clip-5 run is held release by
+# release instead (check_dp_releases).
+AGREE_DP_CLIP = 0.1
+TARGET_DELTA = 1e-5
 AGREE_RUN = dict(hidden=16, n_sites=4, n_days=14, rounds=1, epochs=2,
                  n_independent=1, seed=0)
 AGREE_PP = 0.1          # Table II agreement, percentage points
+DROPOUT_ATOL = 1e-4     # dropout check: parameters, CUDA against the CPU
 SOLAR_PARAMS = 141_953  # parameters of the forecaster at hidden 128
 
 KERNEL_META = {
@@ -57,6 +90,8 @@ KERNEL_META = {
                   "src/repro/kernels/lstm_cell/lstm_cell.py:43"),
     "ewc_update": ("src/repro_torch/kernels/csrc/ewc_update.cu",
                    "src/repro/kernels/ewc_update/ewc_update.py:39"),
+    "dp_clip_noise": ("src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+                      "src/repro/kernels/dp_clip_noise/dp_clip_noise.py:47"),
 }
 
 
@@ -124,7 +159,7 @@ def check_fedavg(dev, gen):
 
     t = SOLAR_PARAMS
     err = 0.0
-    for n in (2, 3, 4, 32):
+    for n in (2, 3, 4, 32, 128):
         x = torch.randn(n, t, generator=gen, device=dev)
         w = torch.rand(n, generator=gen, device=dev)
         ws = (w / w.sum()).tolist()
@@ -232,13 +267,44 @@ def check_ewc(dev, gen):
             "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
+def check_dp(dev, gen):
+    import torch
+    from repro_torch.kernels.dp_clip_noise import ops
+    from repro_torch.kernels.dp_clip_noise.ref import dp_clip_noise_ref
+
+    err = 0.0
+    for t in (1, 5, 8192, SOLAR_PARAMS, (1 << 20) + 3):
+        noise = torch.randn(t, generator=gen, device=dev)
+        d = torch.randn(t, generator=gen, device=dev)
+        for delta in (d * (3.0 / d.norm()), d * (0.25 / d.norm()),
+                      torch.zeros_like(d)):     # clip 1.0 binds, not, zero
+            for m in (0.0, 1.1):
+                out = ops.privatize_flat(delta, noise, 1.0, m)
+                err = max(err, (out - dp_clip_noise_ref(delta, noise, 1.0, m))
+                          .abs().max().item())
+        d[t // 2] = float("nan")        # one NaN: every output NaN, as in JAX
+        require(ops.privatize_flat(d, noise, 1.0, 0.5).isnan().all().item(),
+                "dp_clip_noise drops a NaN of the delta")
+    require(err <= 1e-5, f"dp_clip_noise max abs err {err} > 1e-5")
+    t = SOLAR_PARAMS
+    d = torch.randn(t, generator=gen, device=dev) * 0.05
+    noise = torch.randn(t, generator=gen, device=dev)
+    # the function reads d and the noise once and writes out once; 2T ops
+    # for the norm, 3T for the output
+    bms, by = bound(12 * t, 5 * t)
+    return {"max_abs_err": err, "shape": f"T={t}, clip 5.0, m 0.3",
+            "ms": cuda_ms(lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
+            "plain_ms": cuda_ms(lambda: dp_clip_noise_ref(d, noise, 5.0, 0.3)),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for name, check in (("fedavg_agg", check_fedavg), ("lstm_cell", check_lstm),
-                        ("ewc_update", check_ewc)):
+                        ("ewc_update", check_ewc), ("dp_clip_noise", check_dp)):
         res = check(dev, gen)
         torch.cuda.synchronize()
         print(f"[kernels] {name} ({res['shape']}): max_abs_err "
@@ -263,37 +329,48 @@ def check_table(report, what):
                 f"{what}: non-finite §IV.E row {name}")
 
 
-def print_report(report):
+def print_report(report, tag="main"):
     for name, row in report["table2"].items():
-        print(f"[main] table2 {name:22s} power {row['mean_error_power']:.4f}% "
-              f"energy {row['mean_error_energy']:.4f}% day-power "
+        print(f"[{tag}] table2 {name:22s} power "
+              f"{row['mean_error_power']:.4f}% energy "
+              f"{row['mean_error_energy']:.4f}% day-power "
               f"{row['mean_error_day_power']:.4f}%")
     for name, row in report["independent"].items():
         deg = row["mean_error_power"] - \
             report["table2"][name]["mean_error_power"]
-        print(f"[main] §IV.E  {name:22s} power {row['mean_error_power']:.4f}% "
-              f"(degradation {deg:+.4f} pp)")
-    print(f"[main] async_stats {json.dumps(report['async_stats'])}")
+        print(f"[{tag}] §IV.E  {name:22s} power "
+              f"{row['mean_error_power']:.4f}% (degradation {deg:+.4f} pp)")
+    print(f"[{tag}] async_stats {json.dumps(report['async_stats'])}")
 
 
-def phase_main(dev) -> dict:
+def counted_run(dev, cfg):
+    """``run_fedccl_solar(**cfg)`` on ``dev`` with the launch counters set
+    to 0 just before and read just after; returns (report, counts, wall)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.training.fed_solar import run_fedccl_solar
 
-    reset_launch_counts()
     torch.cuda.synchronize()
+    reset_launch_counts()
     t0 = time.perf_counter()
-    report = run_fedccl_solar(device=dev, **MAIN_PATH)
+    report = run_fedccl_solar(device=dev, **cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    return report, launch_counts(), wall
+
+
+MAIN_KERNELS = ("fedavg_agg", "lstm_cell", "ewc_update")
+
+
+def phase_main(dev) -> dict:
+    report, counts, wall = counted_run(dev, MAIN_PATH)
     print(f"[main] {MAIN_PATH_CUT}")
     print(f"[main] run_fedccl_solar({MAIN_PATH}) on {dev}: {wall:.1f} s")
     print_report(report)
     print(f"[main] launches {json.dumps(counts)}")
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+    for name in MAIN_KERNELS:
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                                  "main path")
     check_table(report, "main path")
     return counts
 
@@ -366,6 +443,184 @@ def phase_profile(dev):
 
 
 # ------------------------------------------------------------------ phase 5
+def closed_form_epsilon(steps: int, sigma: float, delta: float) -> float:
+    """(epsilon, delta) of ``steps`` Gaussian releases of noise multiplier
+    ``sigma``, over the accountant's order grid."""
+    from repro_torch.privacy.accountant import DEFAULT_ORDERS
+
+    return min(steps * a / (2.0 * sigma ** 2) + math.log(1.0 / delta)
+               / (a - 1.0) for a in DEFAULT_ORDERS if a > 1.0)
+
+
+def phase_privacy(dev) -> dict:
+    cfg = dict(PRIVACY_PATH, **PRIVACY)
+    report, counts, wall = counted_run(dev, cfg)
+    print(f"[privacy] run_fedccl_solar({cfg}) on {dev}: {wall:.1f} s")
+    print(f"[privacy] card: {card_line()}")
+    print_report(report, "privacy")
+    print(f"[privacy] launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        require(n > 0, f"kernel {name} never launched on the privacy path")
+    stats = report["async_stats"]
+    require(stats["secure_rounds"] > 0, "no secure round folded")
+    require(stats["secure_recoveries"] == 0,
+            "the solar run has no dropout, yet a client was recovered")
+    require(counts["dp_clip_noise"] == stats["updates"],
+            f"{counts['dp_clip_noise']} DP releases for {stats['updates']} "
+            "updates")
+    require(counts["fedavg_agg"] == stats["secure_rounds"],
+            f"{counts['fedavg_agg']} folds for {stats['secure_rounds']} "
+            "secure rounds")
+    priv = report["privacy"]
+    require(priv["secure_agg"]["rounds"] == stats["secure_rounds"],
+            "privacy report and async_stats count other secure rounds")
+    sigma = PRIVACY["dp_noise_multiplier"]
+    for cid, row in priv["per_client"].items():
+        want = closed_form_epsilon(row["steps"], sigma, TARGET_DELTA)
+        require(math.isclose(row["epsilon"], want, rel_tol=1e-12),
+                f"client {cid}: epsilon {row['epsilon']} != {want}")
+    eps = sorted({(r["steps"], r["epsilon"])
+                  for r in priv["per_client"].values()})
+    print(f"[privacy] per-client (steps, epsilon) at delta {TARGET_DELTA}: "
+          f"{eps} (closed form held)")
+    for name in ("CentralizedAll", "CentralizedContinual", "FederatedLocal"):
+        row = report["table2"][name]
+        require(all(math.isfinite(v) for v in row.values()),
+                f"privacy path: non-finite Table II row {name}")
+        require(row["mean_error_power"] < 30.0,
+                f"privacy path: {name} power error {row['mean_error_power']}")
+        require(row["mean_error_energy"] < 40.0,
+                f"privacy path: {name} energy error "
+                f"{row['mean_error_energy']}")
+    return counts
+
+
+# ------------------------------------------------------------------ phase 6
+def table_gap(a, b, same_nan=True) -> float:
+    """Largest Table II / §IV.E gap in pp over the entries that are NaN in
+    neither run; with ``same_nan`` NaN must sit in the same places."""
+    gap = 0.0
+    for tab in ("table2", "independent"):
+        require(a[tab].keys() == b[tab].keys(), f"{tab} columns differ")
+        for col in a[tab]:
+            for k, v in a[tab][col].items():
+                w = b[tab][col][k]
+                require(not same_nan or math.isnan(v) == math.isnan(w),
+                        f"NaN in one run only: {tab} {col} {k}")
+                if not (math.isnan(v) or math.isnan(w)):
+                    gap = max(gap, abs(v - w))
+    return gap
+
+
+def dropout_feds(devices):
+    """The solar ``train_fn`` under secure aggregation with dropouts and DP
+    clipping, one ``FedCCL`` per device from the same initial weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.fedccl import ClusterSpaceConfig, FedCCL, FedCCLConfig
+    from repro_torch.core.protocol import ClientSpec
+    from repro_torch.data.solar import generate_fleet
+    from repro_torch.data.windows import make_windows, split_windows
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.training.fed_solar import make_solar_fns, make_train_fn
+
+    fleet = generate_fleet(n_sites=6, n_days=9, seed=0)
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=16))
+    init = fc.init(torch.Generator().manual_seed(2), "cpu")
+    train_fn = make_train_fn(make_solar_fns(fc, lr=1e-2)[0], epochs=1)
+    cfg = FedCCLConfig(
+        spaces=(ClusterSpaceConfig("loc", eps=120.0, min_samples=2,
+                                   metric="haversine"),),
+        ewc_lambda=0.05, seed=3, secure_agg=True, dropout_prob=0.4,
+        dp_clip=1.0, dp_noise_multiplier=0.0)
+    rng = np.random.default_rng(0)
+    specs = [ClientSpec(s.site_id, s.static_features,
+                        split_windows(make_windows(d), train_frac=0.8)[0],
+                        speed=float(rng.uniform(0.5, 2.0)))
+             for s, d in fleet]
+    feds = []
+    for dev in devices:
+        fed = FedCCL(cfg, init, train_fn, device=dev)
+        fed.setup(specs)
+        feds.append(fed)
+    return feds
+
+
+def check_dropout(dev):
+    from repro_torch.utils.tree import tree_leaves
+
+    gpu, cpu = dropout_feds([dev, "cpu"])
+    stats, cstats = gpu.run(rounds=3), cpu.run(rounds=3)
+    require(stats == cstats, f"dropout run: async_stats differ {stats} "
+                             f"{cstats}")
+    require(stats["secure_recoveries"] > 0, "no dropped client recovered")
+    require(gpu.privacy_report() == cpu.privacy_report(),
+            "dropout run: privacy reports differ")
+    err = 0.0
+    for level, key in [("global", None)] + [("cluster", k)
+                                            for k in gpu.store.keys()]:
+        for g, c in zip(tree_leaves(gpu.store.params(level, key)),
+                        tree_leaves(cpu.store.params(level, key)),
+                        strict=True):
+            err = max(err, (g.cpu() - c).abs().max().item())
+    print(f"[agree] secure run with dropout 0.4 (6 sites, hidden 16, 3 "
+          f"rounds): {stats['secure_rounds']} secure rounds, "
+          f"{stats['secure_recoveries']} clients recovered; global and "
+          f"cluster parameters CUDA vs CPU max abs diff {err:.3e} (limit "
+          f"{DROPOUT_ATOL})")
+    require(err <= DROPOUT_ATOL, f"dropout run: parameters differ by {err}")
+
+
+def check_dp_releases(dev, init):
+    """DP alone at the privacy path's clip and noise: the CUDA run's every
+    release against the plain version on the same inputs (no recurrence in
+    between), and the schedule, clusters and budgets equal to the CPU
+    run's.  Table II is printed, not bounded: the run is chaotic."""
+    import torch
+    import repro_torch.privacy.dp as dp
+    from repro_torch.kernels.dp_clip_noise.ref import dp_clip_noise_ref
+    from repro_torch.training.fed_solar import run_fedccl_solar
+
+    cfg = dict(AGREE_RUN, dp_clip=PRIVACY["dp_clip"],
+               dp_noise_multiplier=PRIVACY["dp_noise_multiplier"])
+    releases = []
+    launch = dp.privatize_flat
+
+    def recorded(delta, noise, clip, m):
+        out = launch(delta, noise, clip, m)
+        releases.append((delta.cpu(), noise.cpu(), clip, m, out.cpu()))
+        return out
+
+    dp.privatize_flat = recorded
+    try:
+        gpu = run_fedccl_solar(device=dev, init_params=init, **cfg)
+    finally:
+        dp.privatize_flat = launch
+    cpu = run_fedccl_solar(device="cpu", init_params=init, **cfg)
+    for part in ("clusters", "async_stats", "privacy"):
+        require(gpu[part] == cpu[part], f"DP alone at clip "
+                                        f"{cfg['dp_clip']}: {part} differ")
+    require(len(releases) == gpu["async_stats"]["updates"],
+            f"{len(releases)} releases for "
+            f"{gpu['async_stats']['updates']} updates")
+    err, binding = 0.0, 0
+    for delta, noise, clip, m, out in releases:
+        want = dp_clip_noise_ref(delta, noise, clip, m)
+        require(torch.equal(out.isnan(), want.isnan()),
+                "a release is NaN where its plain version is not")
+        ok = ~want.isnan()
+        err = max(err, (out[ok] - want[ok]).abs().max().item()
+                  if ok.any() else 0.0)
+        binding += int(delta.norm().item() > clip)
+    print(f"[agree] {cfg}: {len(releases)} CUDA releases ({binding} with "
+          f"the clip binding) against the plain version on their inputs: "
+          f"max abs err {err:.3e} (limit 1e-5); Table II / §IV.E gap to "
+          f"the CPU run {table_gap(gpu, cpu, same_nan=False):.3e} pp "
+          f"(chaotic, not bounded)")
+    require(err <= 1e-5, f"DP releases off their plain version by {err}")
+
+
 def phase_agree(dev):
     import torch
     from repro_torch.configs.solar_lstm import SolarLSTMConfig
@@ -375,19 +630,29 @@ def phase_agree(dev):
 
     fc = SolarForecaster(SolarLSTMConfig(hidden_size=AGREE_RUN["hidden"]))
     init = params_to_numpy(fc.init(torch.Generator().manual_seed(1), "cpu"))
-    gpu = run_fedccl_solar(device=dev, init_params=init, **AGREE_RUN)
-    cpu = run_fedccl_solar(device="cpu", init_params=init, **AGREE_RUN)
-    require(gpu["clusters"] == cpu["clusters"], "clusters differ")
-    require(gpu["async_stats"] == cpu["async_stats"], "async_stats differ")
-    gap = max(abs(gpu[tab][col][k] - cpu[tab][col][k])
-              for tab in ("table2", "independent")
-              for col in gpu[tab] for k in gpu[tab][col])
-    print(f"[agree] {AGREE_RUN}: CUDA kernels vs CPU plain versions, "
-          f"max Table II / §IV.E gap {gap:.3e} pp (limit {AGREE_PP})")
-    require(gap <= AGREE_PP, f"CUDA and CPU runs differ by {gap} pp")
+    sigma = PRIVACY["dp_noise_multiplier"]
+    for extra in ({}, PRIVACY,
+                  dict(dp_clip=AGREE_DP_CLIP, dp_noise_multiplier=sigma)):
+        cfg = dict(AGREE_RUN, **extra)
+        gpu = run_fedccl_solar(device=dev, init_params=init, **cfg)
+        cpu = run_fedccl_solar(device="cpu", init_params=init, **cfg)
+        for part in ("clusters", "async_stats", "privacy"):
+            require(gpu[part] == cpu[part], f"{extra}: {part} differ")
+        gap = table_gap(gpu, cpu)
+        n_nan = sum(math.isnan(v) for tab in ("table2", "independent")
+                    for row in gpu[tab].values() for v in row.values())
+        print(f"[agree] {cfg}: CUDA kernels vs CPU plain versions, max "
+              f"Table II / §IV.E gap {gap:.3e} pp (limit {AGREE_PP}); "
+              f"{n_nan} NaN entries in both")
+        require(gap <= AGREE_PP, f"CUDA and CPU runs differ by {gap} pp")
+    check_dp_releases(dev, init)
+    check_dropout(dev)
 
 
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.execve(sys.executable, [sys.executable, __file__, *sys.argv[1:]],
+                  dict(os.environ, PYTHONHASHSEED="0"))
     import torch
 
     if not torch.cuda.is_available():
@@ -405,14 +670,18 @@ def main() -> int:
     try:
         phase_build()
         results = phase_kernels(dev)
-        counts = phase_main(dev)
+        counts = {"main": phase_main(dev)}
         phase_profile(dev)
+        counts["privacy"] = phase_privacy(dev)
         phase_agree(dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    # launches: each path's run, counters set to 0 just before it
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces,
+                "launches": sum(c[name] for c in counts.values()),
+                "launches_by_path": {p: c[name] for p, c in counts.items()},
                 "max_abs_err": results[name]["max_abs_err"],
                 "ms": results[name]["ms"],
                 "plain_ms": results[name]["plain_ms"],

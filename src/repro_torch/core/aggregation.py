@@ -179,3 +179,42 @@ def coalesced_aggregate(base_params, base_meta: ModelMeta, updates,
                               plan.n_fast_path)
     return CoalesceResult(multi_aggregate(sets, fracs, cfg), plan.meta,
                           len(updates), len(sets), plan.n_fast_path)
+
+
+def secure_coalesced_aggregate(base_params, base_meta: ModelMeta,
+                               masked_updates,
+                               cfg: AggregationConfig = AggregationConfig(),
+                               correction=None) -> CoalesceResult:
+    """Secure-aggregation drain: fold one full round of masked updates.
+
+    ``masked_updates`` is a sequence of ``(masked_weighted_delta, delta)``
+    pairs where ``masked_weighted_delta = s_i * delta_i + pairwise masks``
+    (see ``repro_torch.privacy.secure_agg``).  The result is
+
+        base + (sum_i y_i - correction) / sum_i s_i
+
+    computed as ONE fused N-way weighted sum (weights ``[1, 1/S, ..., 1/S,
+    -1/S]``, one fold kernel launch on CUDA), so the pairwise masks cancel
+    inside the sum and no individual update is ever unmasked.
+    ``correction`` is the reconstructed stray-mask sum for dropped clients
+    (None when the round is complete).
+    """
+    meta = base_meta
+    total = 0
+    for _, delta in masked_updates:
+        meta = meta.accumulate(delta)
+        total += delta.samples_learned
+    if not masked_updates or total <= 0:
+        # zero sample mass: no delta information to fold, keep the base
+        # (masks only ever enter scaled by 1/total, so nothing leaks)
+        return CoalesceResult(base_params, meta, len(masked_updates), 1, 0)
+    inv = 1.0 / total
+    sets = [base_params] + [y for y, _ in masked_updates]
+    ws = [1.0] + [inv] * len(masked_updates)
+    if correction is not None:
+        sets.append(correction)
+        ws.append(-inv)
+    n_sets = len(sets)
+    sets, ws = _pad_pow2(sets, ws)
+    return CoalesceResult(aggregate_pytrees(sets, ws), meta,
+                          len(masked_updates), n_sets, 0)

@@ -6,10 +6,12 @@ the runtime into one object — the library's main entry point.
     fed.run(rounds=5)                # async training under the sim runtime
     keys, params = fed.join(new_spec)  # Predict & Evolve for a new client
 
-This slice of the port runs the single-lock ``ModelStore`` under the
-deterministic sim runtime.  The other topologies, runtimes and the privacy
-and telemetry layers of the reference arrive with later slices (see
-ROADMAP.md); asking for them raises ``NotImplementedError``.
+The port runs the single-lock ``ModelStore`` under the deterministic sim
+runtime, with the privacy layer (DP privatization, pairwise-mask secure
+aggregation, RDP accounting; ``repro_torch.privacy``).  The other
+topologies and runtimes and the telemetry layer of the reference arrive
+with later slices (see ROADMAP.md); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from repro_torch.core.predict_evolve import ClusterSpace, PredictEvolve
 from repro_torch.core.protocol import Client, ClientSpec
 from repro_torch.core.runtime_sim import AsyncSimRuntime
 from repro_torch.core.store import ModelStore
+from repro_torch.privacy.accountant import RDPAccountant
+from repro_torch.privacy.dp import DPConfig, DPPrivatizer
+from repro_torch.privacy.secure_agg import PairwiseMasker
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -47,15 +52,20 @@ class FedCCLConfig:
     dropout_prob: float = 0.0        # client-unavailability resilience knob
     batch_aggregation: bool = False  # coalescing server path (queue + drain)
     max_coalesce: int = 16           # max queued updates folded per drain
+    # ---- privacy subsystem (repro_torch.privacy)
+    dp_clip: float | None = None     # L2 clip of update deltas; None = DP off
+    dp_noise_multiplier: float = 1.0 # noise std = multiplier * dp_clip
+    secure_agg: bool = False         # pairwise-mask secure aggregation
+    target_delta: float = 1e-5       # delta for (epsilon, delta) reporting
+    # pair-mask std; 0.0 = unmasked parity baseline.  Must be set on the
+    # order of n_samples * dp_clip to actually hide the weighted deltas —
+    # see the magnitude caveat in repro_torch.privacy.secure_agg
+    secure_mask_scale: float = 1.0
     # ---- later slices: setting any of these raises NotImplementedError
     server_shards: int = 0
     server_processes: int = 0
     server_hosts: tuple = ()
     fetch_from_workers: bool = False
-    dp_clip: float | None = None
-    dp_noise_multiplier: float = 1.0
-    secure_agg: bool = False
-    target_delta: float = 1e-5
     telemetry: bool = False
 
 
@@ -72,8 +82,6 @@ _LATER_SLICES = (
      "scale-out server tiers"),
     ("fetch_from_workers", lambda c: c.fetch_from_workers,
      "scale-out server tiers (read tier)"),
-    ("dp_clip", lambda c: c.dp_clip is not None, "privacy"),
-    ("secure_agg", lambda c: c.secure_agg, "privacy"),
     ("telemetry", lambda c: c.telemetry, "telemetry"),
 )
 
@@ -95,9 +103,15 @@ class FedCCL:
         # `.to` returns the same tensor when it already lies on the device;
         # sharing it is safe because nothing updates parameters in place
         init_params = tree_map(lambda x: x.to(self.device), init_params)
+        self.masker = (PairwiseMasker(seed=cfg.seed,
+                                      mask_scale=cfg.secure_mask_scale)
+                       if cfg.secure_agg else None)
+        self.accountant = (RDPAccountant(target_delta=cfg.target_delta)
+                           if cfg.dp_clip is not None else None)
         self.store = ModelStore(init_params,
                                 batch_aggregation=cfg.batch_aggregation,
-                                max_coalesce=cfg.max_coalesce)
+                                max_coalesce=cfg.max_coalesce,
+                                masker=self.masker)
         self.spaces = [
             ClusterSpace(s.name, IncrementalDBSCAN(s.eps, s.min_samples, s.metric))
             for s in cfg.spaces]
@@ -107,6 +121,15 @@ class FedCCL:
         self._init_params = init_params
         self._runtime = None
 
+    def _make_privatizer(self, client_id: str, index: int):
+        if self.cfg.dp_clip is None:
+            return None
+        return DPPrivatizer(
+            DPConfig(clip=self.cfg.dp_clip,
+                     noise_multiplier=self.cfg.dp_noise_multiplier),
+            client_id=client_id, seed=self.cfg.seed + 2000 + index,
+            accountant=self.accountant)
+
     # ----------------------------------------------------------------- setup
     def setup(self, specs: list[ClientSpec]) -> dict[str, list[str]]:
         assignments = self.pe.bootstrap(specs)
@@ -115,7 +138,8 @@ class FedCCL:
                        cluster_keys=assignments[spec.client_id],
                        train_fn=self.train_fn,
                        ewc_lambda=self.cfg.ewc_lambda,
-                       rng=np.random.default_rng(self.cfg.seed + 1000 + i))
+                       rng=np.random.default_rng(self.cfg.seed + 1000 + i),
+                       privatizer=self._make_privatizer(spec.client_id, i))
             c.local_params = self._init_params
             self.clients.append(c)
             self._clients_by_id[spec.client_id] = c
@@ -136,7 +160,8 @@ class FedCCL:
         idx = len(self.clients)
         c = Client(spec=spec, cluster_keys=keys, train_fn=self.train_fn,
                    ewc_lambda=self.cfg.ewc_lambda,
-                   rng=np.random.default_rng(self.cfg.seed + 5000 + idx))
+                   rng=np.random.default_rng(self.cfg.seed + 5000 + idx),
+                   privatizer=self._make_privatizer(spec.client_id, 3000 + idx))
         c.local_params = params
         self.clients.append(c)
         self._clients_by_id[spec.client_id] = c
@@ -144,18 +169,26 @@ class FedCCL:
 
     # --------------------------------------------------------------- privacy
     def privacy_report(self) -> dict:
-        """The reference's report with privacy off (the only setting this
-        slice runs): no (epsilon, delta) budgets, no secure rounds."""
-        return {
+        """(epsilon, delta) budgets and secure-aggregation round accounting
+        for the run so far (see ``repro_torch.privacy``), in the reference's
+        shape: ``per_client`` and ``per_model`` appear when DP is on."""
+        report = {
             "dp": {
-                "enabled": False,
-                "clip": None,
+                "enabled": self.cfg.dp_clip is not None,
+                "clip": self.cfg.dp_clip,
                 "noise_multiplier": self.cfg.dp_noise_multiplier,
                 "target_delta": self.cfg.target_delta,
             },
-            "secure_agg": {"enabled": False, "rounds": 0,
-                           "dropout_recoveries": 0},
+            "secure_agg": {
+                "enabled": self.cfg.secure_agg,
+                "rounds": self.store.n_secure_rounds,
+                "dropout_recoveries": self.store.n_secure_recoveries,
+            },
         }
+        if self.accountant is not None:
+            report["per_client"] = self.accountant.client_report()
+            report["per_model"] = self.accountant.model_report()
+        return report
 
     # ------------------------------------------------------------- inference
     def model_for(self, client_id: str, level: str = "auto"):

@@ -22,6 +22,7 @@ import numpy as np
 from repro_torch.core.aggregation import ModelMeta, UpdateDelta
 from repro_torch.core.continual import EWCState, make_anchor
 from repro_torch.core.store import ModelStore
+from repro_torch.utils.tree import flatten_params, unflatten_params
 
 # train_fn(params, dataset, rng, anchor: EWCState|None) ->
 #     (new_params, n_samples, n_epochs)
@@ -55,6 +56,10 @@ class Client:
     train_fn: TrainFn
     ewc_lambda: float = 0.0
     rng: np.random.Generator = field(default_factory=lambda: np.random.default_rng(0))
+    # DP update privatization hook (repro_torch.privacy.dp.DPPrivatizer);
+    # when set, every shared-tier update delta is clipped + noised before
+    # submission
+    privatizer: object | None = None
 
     local_params: object = None
     local_meta: ModelMeta = field(default_factory=ModelMeta)
@@ -79,15 +84,53 @@ class Client:
         """RequestModel: snapshot the shared model (start of async round)."""
         return store.request_model(level, cluster_key)
 
-    def train_update(self, fetched_params, fetched_meta: ModelMeta):
-        """TrainModel + ComputeModelMetaDelta on a fetched snapshot."""
+    def train_update(self, fetched_params, fetched_meta: ModelMeta,
+                     model_key: str = "__global__", *, privatize: bool = True):
+        """TrainModel + ComputeModelMetaDelta on a fetched snapshot.
+
+        With a ``privatizer`` attached the raw trained parameters never leave
+        this method: the update delta is clipped + noised first, and the
+        release is recorded against ``model_key`` in the RDP accountant.
+        ``privatize=False`` defers DP to the caller — the secure path
+        privatizes the flat delta directly, avoiding a tree round trip."""
         anchor = (make_anchor(fetched_params, lam=self.ewc_lambda)
                   if self.ewc_lambda else None)
         new_params, n_samples, n_epochs = self.train_fn(
             fetched_params, self.spec.dataset, self.rng, anchor)
+        if privatize and self.privatizer is not None:
+            new_params = self.privatizer.privatize(fetched_params, new_params,
+                                                   model_key=model_key)
         return build_update(fetched_meta, new_params, n_samples, n_epochs)
 
     def submit(self, store: ModelStore, level: str, cluster_key,
                new_params, updated_meta, delta) -> bool:
         return store.handle_model_update(level, cluster_key, new_params,
                                          updated_meta, delta)
+
+    # -------------------------------------------- secure-aggregation round
+    def secure_round_update(self, store: ModelStore, level: str, cluster_key,
+                            expected_ids, round_id: int):
+        """One shared-tier step under secure aggregation: fetch -> train
+        (+DP privatization) -> pairwise-mask the weighted delta -> submit.
+        ``expected_ids`` is the round's full member set for this model; the
+        masks are derived against all of them so dropouts are recoverable
+        via seed reconstruction at drain time."""
+        if store.masker is None:
+            raise RuntimeError("a secure round needs a masker on the store")
+        model_key = store.model_key(level, cluster_key)
+        fetched, meta = self.fetch(store, level, cluster_key)
+        new_params, _, delta = self.train_update(fetched, meta,
+                                                 model_key=model_key,
+                                                 privatize=False)
+        # privatize + mask in one flat-domain pass (no tree round trips)
+        delta_flat = flatten_params(new_params) - flatten_params(fetched)
+        if self.privatizer is not None:
+            delta_flat = self.privatizer.privatize_delta(delta_flat, model_key)
+        masked = unflatten_params(
+            store.masker.mask_delta_flat(
+                delta_flat, self.spec.client_id, expected_ids, round_id,
+                model_key, weight=delta.samples_learned),
+            fetched)
+        store.submit_secure(level, cluster_key, self.spec.client_id,
+                            round_id, masked, delta)
+        return delta

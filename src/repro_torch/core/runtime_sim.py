@@ -62,7 +62,13 @@ class AsyncSimRuntime:
         aggregating inline; queued updates are drained (coalesced into one
         N-way aggregation per model) right before anyone re-reads the model
         — at fetch time — and whenever a queue hits ``max_coalesce``.
+
+        With a secure-aggregation masker on the store, the schedule switches
+        to full-round drains instead (``_run_secure``): masks only cancel
+        when a round's complete member set is folded at once.
         """
+        if self.store.masker is not None:
+            return self._run_secure(rounds_per_client)
         batched = self.store.batch_aggregation
         for i, c in enumerate(self.clients):
             self._push(self._duration(c) * self.rng.uniform(0, 1), "round_start", i)
@@ -99,7 +105,8 @@ class AsyncSimRuntime:
 
             elif ev.kind == "submit":
                 for level, key, p, m in ev.payload:
-                    new_p, new_meta, delta = client.train_update(p, m)
+                    new_p, new_meta, delta = client.train_update(
+                        p, m, self.store.model_key(level, key))
                     # staleness vs the round at enqueue time: queued-but-
                     # undrained updates count (in batched mode the
                     # materialized meta lags the logical server round)
@@ -115,6 +122,46 @@ class AsyncSimRuntime:
         if batched:
             self.store.drain_all()
 
+    # ---------------------------------------------------- secure aggregation
+    def _model_members(self):
+        """(level, cluster_key, member clients) for every server model."""
+        out = [("global", None, list(self.clients))]
+        for key in self.store.keys():
+            members = [c for c in self.clients if key in c.cluster_keys]
+            if members:
+                out.append(("cluster", key, members))
+        return out
+
+    def _run_secure(self, rounds: int):
+        """Full-round lockstep schedule for secure aggregation: every
+        available member of a model submits its masked update, then one
+        ``drain_secure`` folds the round (masks cancel inside the fused sum).
+        Clients hit by ``dropout_prob`` sit the whole round out — their
+        stray masks are recovered via seed reconstruction, the paper's
+        dynamic-availability setting."""
+        base = self.store.secure_round_offset
+        for r in range(base, base + rounds):
+            avail = [c for c in self.clients
+                     if not (self.dropout_prob
+                             and self.rng.random() < self.dropout_prob)]
+            if not avail:      # degenerate draw: keep the round non-empty
+                avail = [self.clients[int(self.rng.integers(len(self.clients)))]]
+            for c in avail:
+                c.train_local()
+            for level, key, members in self._model_members():
+                participants = [c for c in avail if c in members]
+                if not participants:
+                    continue
+                expected = [c.spec.client_id for c in members]
+                for c in participants:
+                    c.secure_round_update(self.store, level, key, expected, r)
+                    self.staleness_log.append(0)   # lockstep: never stale
+                self.store.drain_secure(level, key, r, expected)
+            self.now += max(self._duration(c) for c in avail)
+            for c in avail:
+                self.completed_rounds[c.spec.client_id] += 1
+        self.store.secure_round_offset = base + rounds
+
     # ------------------------------------------------------------- reporting
     def stats(self) -> dict:
         sl = np.array(self.staleness_log) if self.staleness_log else np.zeros(1)
@@ -128,4 +175,8 @@ class AsyncSimRuntime:
         if self.store.batch_aggregation:
             out["coalesce_factor"] = self.store.coalesce_factor()
             out["max_queue_depth"] = self.store.max_queue_depth
+        if self.store.masker is not None:
+            out["secure_rounds"] = self.store.n_secure_rounds
+            out["secure_recoveries"] = self.store.n_secure_recoveries
+            out["coalesce_factor"] = self.store.coalesce_factor()
         return out

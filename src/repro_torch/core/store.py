@@ -12,6 +12,12 @@ model into one ``coalesced_aggregate`` call — one fold kernel launch per
 drained batch instead of one full parameter pass per update.  Semantics are
 identical to the sequential fold (see ``coalesced_aggregate``).
 
+Secure mode (``masker`` attached): clients submit masked weighted deltas via
+``submit_secure`` and ``drain_secure`` folds one full round at a time — the
+pairwise masks cancel inside the fused N-way sum, with seed-reconstruction
+recovery for members that dropped mid-round (see
+``repro_torch.privacy.secure_agg``).
+
 Stored parameters are never updated in place: a fold builds a new tree and
 swaps it in, so a snapshot handed to a client stays as it was.
 """
@@ -28,6 +34,7 @@ from repro_torch.core.aggregation import (
     UpdateDelta,
     aggregate_models,
     coalesced_aggregate,
+    secure_coalesced_aggregate,
 )
 
 GLOBAL_KEY = "__global__"
@@ -39,6 +46,16 @@ class PendingUpdate:
 
     params: object
     meta: ModelMeta
+    delta: UpdateDelta
+
+
+@dataclass(frozen=True)
+class PendingSecureUpdate:
+    """One masked client update awaiting its round's secure drain."""
+
+    client_id: str
+    round_id: int
+    masked_delta: object     # s_i * privatized_delta_i + pairwise masks
     delta: UpdateDelta
 
 
@@ -59,6 +76,9 @@ class ModelRecord:
         # guarded by pending_lock so `effective_round` readers always see
         # pop-and-register / swap-and-retire as single atomic steps
         self.inflight_rounds: int = 0
+        # secure-aggregation rounds: round_id -> [PendingSecureUpdate];
+        # guarded by pending_lock as well
+        self.secure_pending: dict[int, list] = {}
 
     @property
     def params(self):
@@ -112,6 +132,41 @@ def _drain_record_once(rec: ModelRecord, max_coalesce: int,
     return res
 
 
+def _drain_secure_record(rec: ModelRecord, key: str, round_id: int,
+                         expected_ids, masker,
+                         agg_cfg: AggregationConfig) -> tuple[int, int]:
+    """Fold one secure round on one record; returns (folded, recovered).
+    Caller holds ``rec.lock``."""
+    with rec.pending_lock:
+        batch = rec.secure_pending.pop(round_id, [])
+    if not batch:
+        return 0, 0
+    try:
+        submitted = {u.client_id for u in batch}
+        missing = sorted(set(expected_ids) - submitted)
+        correction = None
+        if missing:
+            if masker is None:
+                raise RuntimeError(
+                    "secure round has dropouts but no masker is attached "
+                    "for seed reconstruction")
+            correction = masker.reconstruct(
+                rec.params, missing, sorted(submitted), round_id, key)
+        res = secure_coalesced_aggregate(
+            rec.params, rec.meta,
+            [(u.masked_delta, u.delta) for u in batch],
+            agg_cfg, correction)
+    except BaseException:
+        # don't strand the round: restore it so a later retry can fold it
+        with rec.pending_lock:
+            rec.secure_pending[round_id] = \
+                batch + rec.secure_pending.get(round_id, [])
+        raise
+    with rec.pending_lock:
+        rec.swap(res.params, res.meta)
+    return len(batch), len(missing)
+
+
 class _RegistryBase:
     """Model-registry plumbing.
 
@@ -139,7 +194,8 @@ class _RegistryBase:
         return str(cluster_key)
 
     def model_key(self, level: str, cluster_key: str | None = None) -> str:
-        """Public (level, cluster_key) -> storage-key mapping."""
+        """Public (level, cluster_key) -> storage-key mapping — the string
+        clients and the masker must agree on when deriving round masks."""
         return self._key(level, cluster_key)
 
     def _record(self, key: str) -> ModelRecord:
@@ -235,11 +291,20 @@ class _StoreBase(_RegistryBase):
 
     def __init__(self, init_params, cluster_keys=(),
                  agg_cfg: AggregationConfig = AggregationConfig(),
-                 batch_aggregation: bool = False, max_coalesce: int = 16):
+                 batch_aggregation: bool = False, max_coalesce: int = 16,
+                 masker=None):
         super().__init__(init_params, cluster_keys)
         self.agg_cfg = agg_cfg
         self.batch_aggregation = batch_aggregation
         self.max_coalesce = max(int(max_coalesce), 1)
+        # secure aggregation: a repro_torch.privacy.secure_agg.PairwiseMasker
+        # (its presence switches the sim runtime to full-round secure drains)
+        self.masker = masker
+        # monotone round-id base carried across runtime runs — pair masks are
+        # derived from (pair, round_id, model_key), so round ids must never
+        # repeat for one masker or masks would be reused (and cancellable
+        # across runs by an observer)
+        self.secure_round_offset = 0
         # drain-side counters (cold path: one touch per batch, not per
         # submit) behind a store-level lock
         self._drain_lock = threading.Lock()
@@ -247,6 +312,8 @@ class _StoreBase(_RegistryBase):
         self._n_drain_fast_path = 0
         self.n_drain_batches = 0
         self.n_drained = 0                     # updates consumed by drains
+        self.n_secure_rounds = 0               # secure drains performed
+        self.n_secure_recoveries = 0           # dropped clients recovered
 
     # ----------------------------------------------------------- flavor hooks
     def _submit_stats(self, key: str) -> _SubmitStats:
@@ -257,12 +324,16 @@ class _StoreBase(_RegistryBase):
         """Every submit-side sink, for the aggregate counter properties."""
         raise NotImplementedError
 
-    def _count_drain(self, folded: int, fast: int):
+    def _count_drain(self, folded: int, fast: int, secure: bool = False,
+                     recovered: int = 0):
         with self._drain_lock:
             self._n_drain_updates += folded
             self._n_drain_fast_path += fast
             self.n_drain_batches += 1
             self.n_drained += folded
+            if secure:
+                self.n_secure_rounds += 1
+                self.n_secure_recoveries += recovered
 
     # ---------------------------------- aggregate counters (drain + submit)
     # Each property takes `_drain_lock` for the drain half and reads every
@@ -374,6 +445,44 @@ class _StoreBase(_RegistryBase):
             self._count_drain(res.n_folded, res.n_fast_path)
             drained += res.n_folded
 
+    # ---------------------------------------------------- secure aggregation
+    def submit_secure(self, level: str, cluster_key: str | None,
+                      client_id: str, round_id: int, masked_delta,
+                      delta: UpdateDelta) -> int:
+        """Queue one masked update for its round's secure drain.  The server
+        never aggregates these individually — only ``drain_secure`` folds a
+        full round, inside which the pairwise masks cancel."""
+        key = self._key(level, cluster_key)
+        rec = self._record(key)
+        st = self._submit_stats(key)
+        st.count_enqueue()          # before publish — see _SubmitStats
+        with rec.pending_lock:
+            bucket = rec.secure_pending.setdefault(round_id, [])
+            bucket.append(PendingSecureUpdate(client_id, round_id,
+                                              masked_delta, delta))
+            depth = len(bucket)
+        st.observe_depth(depth)
+        return depth
+
+    def drain_secure(self, level: str, cluster_key: str | None,
+                     round_id: int, expected_ids) -> int:
+        """Fold one secure round into a single fused N-way sum.
+
+        ``expected_ids`` is the round's full member set; members that never
+        submitted (dropouts) are recovered by reconstructing their stray
+        pairwise masks from the pair seeds and subtracting them inside the
+        same sum.  Returns the number of updates folded.
+        """
+        key = self._key(level, cluster_key)
+        rec = self._record(key)
+        with rec.lock:
+            folded, recovered = _drain_secure_record(
+                rec, key, round_id, expected_ids, self.masker, self.agg_cfg)
+        if not folded:
+            return 0
+        self._count_drain(folded, 0, secure=True, recovered=recovered)
+        return folded
+
     # ------------------------------------------------------------- inspection
     def coalesce_factor(self) -> float:
         """Mean queued-updates-per-drain — 1.0 means no batching benefit."""
@@ -389,9 +498,10 @@ class ModelStore(_StoreBase):
 
     def __init__(self, init_params, cluster_keys=(),
                  agg_cfg: AggregationConfig = AggregationConfig(),
-                 batch_aggregation: bool = False, max_coalesce: int = 16):
+                 batch_aggregation: bool = False, max_coalesce: int = 16,
+                 masker=None):
         super().__init__(init_params, cluster_keys, agg_cfg,
-                         batch_aggregation, max_coalesce)
+                         batch_aggregation, max_coalesce, masker)
         self._submit = _SubmitStats()
 
     def _submit_stats(self, key: str) -> _SubmitStats:
@@ -420,9 +530,11 @@ class ModelStore(_StoreBase):
             drain_batches = self.n_drain_batches
             coalesce = (self.n_drained / drain_batches) if drain_batches \
                 else 0.0
+            secure_rounds = self.n_secure_rounds
+            secure_recoveries = self.n_secure_recoveries
         direct, fast, lock_waits, enqueued, max_depth = self._submit.snapshot()
         updates = drain_updates + direct
-        return {
+        out = {
             "updates": updates,
             "fast_path_frac": (drain_fast + fast) / max(updates, 1),
             "lock_waits": lock_waits,
@@ -433,3 +545,7 @@ class ModelStore(_StoreBase):
             # the single-lock sim topology has no bounded drains to time out
             "drain_timeouts": 0,
         }
+        if self.masker is not None:
+            out["secure_rounds"] = secure_rounds
+            out["secure_recoveries"] = secure_recoveries
+        return out

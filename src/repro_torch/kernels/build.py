@@ -34,6 +34,7 @@ SIGNATURES = {
     "fedavg_agg_launch": [_P, _P, _I, _L, _P, _P],
     "lstm_cell_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ewc_update_launch": [_F, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    "dp_clip_noise_launch": [_P, _P, _F, _F, _L, _P, _P, _P],
 }
 
 _lib = None

@@ -12,8 +12,9 @@
 // w_i * x[i, t] for i = 0..N-1 in that order, in f32, as the reference does;
 // neighbouring threads read neighbouring columns, so every row read is
 // coalesced.  The weights travel by value in the launch parameters (no
-// host-to-device copy, no extra allocation); N is capped at FEDAVG_MAX_N and
-// the wrapper raises above it.  A zero weight (the _pad_pow2 padding) adds an
+// host-to-device copy, no extra allocation); N is capped at FEDAVG_MAX_N, and
+// the wrapper folds more sets in ordered chunks, each chunk behind the
+// running sum at weight 1.0 (fedavg_agg/ops.py fold_chunks).  A zero weight (the _pad_pow2 padding) adds an
 // exact 0.0f, so padded folds give the unpadded result.
 
 #include <cuda_runtime.h>

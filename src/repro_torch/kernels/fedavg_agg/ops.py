@@ -18,11 +18,37 @@ MAX_N = 64          # FEDAVG_MAX_N in csrc/fedavg_agg.cu (weights by value)
 launches = 0
 
 
+def fold_chunks(stacked: torch.Tensor, ws: list, fold) -> torch.Tensor:
+    """``sum_i ws[i] * stacked[i]`` through ``fold(rows, weights)``, which
+    takes at most ``MAX_N`` sets: the first ``MAX_N`` sets, then ``MAX_N - 1``
+    at a time behind the running sum as set 0 at weight 1.0.  Since
+    ``1 * acc + 0 == acc``, a fold that adds in row order gives the flat
+    loop's sum over all N sets."""
+    out = fold(stacked[:MAX_N], ws[:MAX_N])
+    for lo in range(MAX_N, len(ws), MAX_N - 1):
+        hi = lo + MAX_N - 1
+        out = fold(torch.cat([out[None], stacked[lo:hi]]), [1.0] + ws[lo:hi])
+    return out
+
+
+def _launch(stacked: torch.Tensor, ws: list) -> torch.Tensor:
+    global launches
+    n, t = stacked.shape
+    out = torch.empty(t, dtype=torch.float32, device=stacked.device)
+    status = build.library().fedavg_agg_launch(
+        stacked.data_ptr(), (ctypes.c_float * n)(*ws), n, t, out.data_ptr(),
+        build.stream_handle(stacked.device))
+    build.check(status, "fedavg_agg")
+    launches += 1
+    return out
+
+
 def aggregate_flat(stacked: torch.Tensor, weights) -> torch.Tensor:
-    """stacked: (N, T) f32; weights: N floats -> (T,) f32 weighted sum."""
+    """stacked: (N, T) f32; weights: N floats -> (T,) f32 weighted sum.
+    On CUDA, more than ``MAX_N`` sets fold in ordered chunks (one launch
+    each, see ``fold_chunks``)."""
     if not build.on_cuda("fedavg_agg", stacked):
         return agg_ref(stacked, weights)
-    global launches
     build.require_f32_contiguous("fedavg_agg", stacked=stacked)
     if stacked.dim() != 2:
         raise ValueError(f"fedavg_agg: stacked must be (N, T), got "
@@ -31,17 +57,11 @@ def aggregate_flat(stacked: torch.Tensor, weights) -> torch.Tensor:
     ws = [float(w) for w in weights]
     if len(ws) != n:
         raise ValueError(f"fedavg_agg: {n} rows vs {len(ws)} weights")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"fedavg_agg: N = {n} outside [1, {MAX_N}]")
-    out = torch.empty(t, dtype=torch.float32, device=stacked.device)
+    if n < 1:
+        raise ValueError("fedavg_agg: needs at least one row")
     if t == 0:
-        return out
-    status = build.library().fedavg_agg_launch(
-        stacked.data_ptr(), (ctypes.c_float * n)(*ws), n, t, out.data_ptr(),
-        build.stream_handle(stacked.device))
-    build.check(status, "fedavg_agg")
-    launches += 1
-    return out
+        return torch.empty(0, dtype=torch.float32, device=stacked.device)
+    return fold_chunks(stacked, ws, _launch)
 
 
 def aggregate_pytrees(trees: list, weights: list):

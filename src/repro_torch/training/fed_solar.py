@@ -10,8 +10,9 @@ centralized baselines, and produces a Table-II-shaped report:
 
 plus the §IV.E population-independent evaluation on held-out sites.
 
-On CUDA every LSTM step, every server fold and every anchored SGD update
-runs through the port's hand-written kernels (``repro_torch.kernels``).
+On CUDA every LSTM step, every server fold, every anchored SGD update and
+every DP release runs through the port's hand-written kernels
+(``repro_torch.kernels``).
 """
 
 from __future__ import annotations
@@ -109,8 +110,10 @@ def run_fedccl_solar(n_sites: int = 9, n_days: int = 60, rounds: int = 3,
     ``device`` defaults to CUDA and raises when there is none.
     ``init_params`` (a tree of numpy arrays, e.g. JAX params through
     ``np.asarray``) replaces the port's own initialisation, which cannot
-    reproduce JAX's PRNG.  ``dp_clip`` and ``secure_agg`` arrive with the
-    privacy slice; setting them raises ``NotImplementedError``.
+    reproduce JAX's PRNG.  With ``dp_clip`` / ``secure_agg`` set, client
+    updates are privatized (clip + Gaussian noise) and/or aggregated under
+    pairwise masking; the report's ``privacy`` section then carries
+    (epsilon, delta) budgets.
     """
     device = resolve_device(device)
     rng = np.random.default_rng(seed)

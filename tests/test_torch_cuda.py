@@ -6,7 +6,8 @@ file imports only torch, numpy and ``repro_torch`` so that it runs on a
 machine without JAX.  Shapes are the solar main path's: T = 141,953
 parameters at hidden 128, H = 128 with I = 9 or 10.  Tolerances: fold
 atol 1e-6 (N-way f32 sums in the same order), step atol 1e-5, anchor
-gradient rtol/atol 1e-5 and loss rtol 1e-4.
+gradient rtol/atol 1e-5 and loss rtol 1e-4, DP release atol 1e-5 (the
+reference tests' own).
 """
 
 import pytest
@@ -14,6 +15,8 @@ import torch
 
 from repro_torch.configs.solar_lstm import SolarLSTMConfig
 from repro_torch.core.aggregation import _pad_pow2
+from repro_torch.kernels.dp_clip_noise.ops import privatize_flat
+from repro_torch.kernels.dp_clip_noise.ref import dp_clip_noise_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ewc_update.ops import ewc_penalty_grad_flat
 from repro_torch.kernels.ewc_update.ref import ewc_ref
@@ -22,6 +25,7 @@ from repro_torch.kernels.fedavg_agg.ref import agg_ref
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_step
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 from repro_torch.models.lstm import SolarForecaster
+from repro_torch.privacy.dp import DPConfig, DPPrivatizer
 from repro_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +62,55 @@ def test_fedavg_kernel_matches_plain(n, cuda):
     torch.testing.assert_close(out, agg_ref(x, ws), rtol=0, atol=1e-6)
     sets, pws = _pad_pow2(list(x), ws)           # zero-weight padding is exact
     assert torch.equal(aggregate_flat(torch.stack(sets), pws), out)
+
+
+@pytest.mark.parametrize("n", [70, 128])
+def test_fedavg_kernel_folds_more_than_64_sets(n, cuda):
+    """A secure round of more than 62 submitters folds 64 < N sets: one
+    launch for the first 64, then one per 63 more."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = randn(gen, n, T)
+    ws = torch.rand(n, generator=gen, device=cuda)
+    ws = (ws / ws.sum()).tolist()
+    before = launch_counts()["fedavg_agg"]
+    out = aggregate_flat(x, ws)
+    assert launch_counts()["fedavg_agg"] == before + 1 + -(-(n - 64) // 63)
+    torch.testing.assert_close(out, agg_ref(x, ws), rtol=0, atol=1e-6)
+    sets, pws = _pad_pow2(list(x), ws)
+    assert torch.equal(aggregate_flat(torch.stack(sets), pws), out)
+
+
+@pytest.mark.parametrize("m", [0.0, 1.1])
+@pytest.mark.parametrize("case", ["binding", "inside", "zero", "nan"])
+@pytest.mark.parametrize("t", [1, 5, 8192, T, (1 << 20) + 3])
+def test_dp_clip_noise_kernel_matches_plain(t, case, m, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    d = randn(gen, t)
+    d = torch.zeros_like(d) if case == "zero" else \
+        d * ((3.0 if case == "binding" else 0.25) / d.norm())
+    if case == "nan":        # one NaN makes every output NaN, as in JAX
+        d[t // 2] = float("nan")
+    noise = randn(gen, t)
+    before = launch_counts()["dp_clip_noise"]
+    out = privatize_flat(d, noise, 1.0, m)
+    assert launch_counts()["dp_clip_noise"] == before + 1
+    want = dp_clip_noise_ref(d, noise, 1.0, m)
+    if case == "nan":
+        assert out.isnan().all() and want.isnan().all()
+    else:
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    if case == "zero":
+        torch.testing.assert_close(out, noise * m, rtol=0, atol=0)
+    assert privatize_flat(d[:0], noise[:0], 1.0, m).shape == (0,)
+
+
+def test_privatizer_adds_the_same_noise_on_card_and_cpu(cuda):
+    gen = torch.Generator().manual_seed(0)
+    d = torch.randn(T, generator=gen) * 0.01
+    cfg = DPConfig(clip=0.5, noise_multiplier=0.3)
+    got = DPPrivatizer(cfg, "c0", seed=4).privatize_delta(d.to(cuda), "k")
+    want = DPPrivatizer(cfg, "c0", seed=4).privatize_delta(d, "k")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("B,I", [(1, 9), (7, 10), (8, 10), (26, 9)])

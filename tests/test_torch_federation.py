@@ -27,6 +27,8 @@ from repro_torch.core.store import ModelStore
 from repro_torch.data.solar import generate_fleet
 from repro_torch.data.windows import make_windows, split_windows
 from repro_torch.models.lstm import SolarForecaster
+from repro_torch.privacy.dp import DPConfig, DPPrivatizer
+from repro_torch.privacy.secure_agg import PairwiseMasker
 from repro_torch.configs.solar_lstm import SolarLSTMConfig
 from repro_torch.training.fed_solar import make_solar_fns, make_train_fn
 from repro_torch.utils.tree import params_from_numpy, tree_leaves, tree_map
@@ -226,16 +228,32 @@ def test_store_inline_and_batched_fold_the_same():
 
 
 # ------------------------------------------------------- facade surface
-def test_privacy_report_has_the_reference_shape():
-    fed = FedCCL(FedCCLConfig(), {"w": torch.zeros(2)}, None, device="cpu")
-    jfed = JaxFedCCL(JaxFedCCLConfig(), {"w": jnp.zeros(2)}, None)
+@pytest.mark.parametrize("privacy", [
+    {}, {"dp_clip": 0.5, "dp_noise_multiplier": 1.2},
+    {"dp_clip": 0.5, "dp_noise_multiplier": 1.2, "secure_agg": True}],
+    ids=["off", "dp", "dp-secure"])
+def test_privacy_report_has_the_reference_shape(privacy):
+    """The report before and after a run; its epsilons depend only on the
+    noise multiplier and the release count, not on the noise drawn."""
+    kw = dict(spaces=(), seed=3, **privacy)
+    fed = FedCCL(FedCCLConfig(**kw), {"w": torch.zeros(())}, scalar_train_fn,
+                 device="cpu")
+    jfed = JaxFedCCL(JaxFedCCLConfig(**kw), {"w": jnp.zeros(())},
+                     scalar_train_fn)
     assert fed.privacy_report() == jfed.privacy_report()
+    fed.setup(specs_for(ClientSpec, 3, n_per_group=1))
+    jfed.setup(specs_for(JaxClientSpec, 3, n_per_group=1))
+    fed.run(rounds=2)
+    jfed.run(rounds=2)
+    assert fed.privacy_report() == jfed.privacy_report()
+    if privacy:
+        assert fed.privacy_report()["per_client"]
 
 
 @pytest.mark.parametrize("option", [
     {"runtime": "threaded"}, {"server_shards": 2}, {"server_processes": 2},
     {"server_hosts": ("localhost:1",)}, {"fetch_from_workers": True},
-    {"dp_clip": 1.0}, {"secure_agg": True}, {"telemetry": True}])
+    {"telemetry": True}])
 def test_later_slices_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
@@ -292,3 +310,20 @@ def test_training_and_folds_leave_shared_tensors_unchanged():
     assert same(upd_a[0], upd_a_copy)            # a's tree the fold read
     assert same(init, init_copy)                 # the shared init
     assert same(b.local_params, init_copy)       # the other client's params
+
+    # a privatized update and a masked submission leave the fetched tensors
+    # (and everything else shared) as they were
+    a.privatizer = DPPrivatizer(DPConfig(clip=0.1, noise_multiplier=0.5),
+                                a.spec.client_id, seed=1)
+    snap, meta = a.fetch(fed.store, "global")
+    snap_copy = frozen(snap)
+    priv = a.train_update(snap, meta)[0]
+    assert not same(priv, snap_copy) and same(snap, snap_copy)
+    secure = ModelStore(init, masker=PairwiseMasker(seed=1, mask_scale=2.0))
+    ids = [a.spec.client_id, b.spec.client_id]
+    for c in (a, b):
+        c.secure_round_update(secure, "global", None, ids, 0)
+    assert same(init, init_copy)                 # the fetched snapshot
+    assert secure.drain_secure("global", None, 0, ids) == 2
+    assert secure.params("global") is not init
+    assert same(init, init_copy) and same(b.local_params, init_copy)

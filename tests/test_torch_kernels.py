@@ -25,8 +25,14 @@ from repro.models.lstm import lstm_cell as jax_model_cell
 from repro_torch.core.aggregation import _pad_pow2
 from repro_torch.kernels import build, launch_counts, reset_launch_counts
 from repro_torch.kernels.ewc_update.ops import ewc_penalty_grad_flat
+from repro_torch.kernels.dp_clip_noise.ops import privatize_flat
 from repro_torch.kernels.ewc_update.ref import ewc_ref
-from repro_torch.kernels.fedavg_agg.ops import aggregate_flat, aggregate_pytrees
+from repro_torch.kernels.fedavg_agg.ops import (
+    MAX_N,
+    aggregate_flat,
+    aggregate_pytrees,
+    fold_chunks,
+)
 from repro_torch.kernels.fedavg_agg.ref import agg_ref
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_cell_fused, lstm_step
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
@@ -62,6 +68,27 @@ def test_agg_pad_pow2_is_exact(n, rng):
     ref = np.asarray(jax_agg_flat(jnp.asarray(torch.stack(sets).numpy()),
                                   jnp.asarray(pws, jnp.float32)))
     np.testing.assert_allclose(padded.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [64, 65, 70, 128, 200])
+def test_agg_fold_chunks_equals_the_flat_fold(n, rng):
+    """The CUDA route folds more than MAX_N sets in ordered chunks behind
+    the running sum at weight 1.0; with the row-ordered plain fold in each
+    chunk that is the flat fold, bit for bit, and the JAX kernel's sum."""
+    x = rng.standard_normal((n, 257)).astype(np.float32)
+    ws = rng.dirichlet(np.ones(n)).tolist()
+    calls = []
+
+    def fold(rows, w):
+        assert rows.shape[0] == len(w) <= MAX_N
+        calls.append(len(w))
+        return agg_ref(rows, w)
+
+    out = fold_chunks(t32(x), ws, fold)
+    assert len(calls) == 1 + -(-(n - MAX_N) // (MAX_N - 1))
+    assert torch.equal(out, agg_ref(t32(x), ws))
+    ref = np.asarray(jax_agg_flat(jnp.asarray(x), jnp.asarray(ws, jnp.float32)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
 def test_agg_pytrees_matches_jax(rng):
@@ -166,8 +193,9 @@ def test_cpu_calls_run_the_plain_versions_and_count_nothing(rng):
     lstm_step(x, h, c, wx, wh, b)
     aggregate_flat(torch.stack([x[0], x[1]]), [0.5, 0.5])
     ewc_penalty_grad_flat(0.1, x[0], x[1], x[0])
+    privatize_flat(x[0], x[1], 1.0, 0.5)
     assert launch_counts() == {"fedavg_agg": 0, "lstm_cell": 0,
-                               "ewc_update": 0}
+                               "ewc_update": 0, "dp_clip_noise": 0}
 
 
 def test_wrappers_refuse_devices_without_a_route():
@@ -176,6 +204,8 @@ def test_wrappers_refuse_devices_without_a_route():
         aggregate_flat(m, [0.25] * 4)
     with pytest.raises(ValueError, match="no route"):
         ewc_penalty_grad_flat(0.1, m[0], m[0], m[0])
+    with pytest.raises(ValueError, match="no route"):
+        privatize_flat(m[0], m[0], 1.0, 0.5)
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
