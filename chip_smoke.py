@@ -6,10 +6,16 @@ Phases, each fatal on failure (non-zero exit, no final line):
 
 1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
              with nvcc for sm_90a; print the build time and the card.
-2. kernels — every kernel of the main path against its plain PyTorch version
-             on the card, at the main path's shapes, with stated tolerances;
-             the LSTM step's autograd.Function gradients against autograd of
-             the plain cell; times of kernel, plain version and library call.
+2. kernels — every kernel against its plain PyTorch version on the card,
+             at its path's shapes, with stated tolerances (the LLM
+             kernels: ssd_chunk at mamba2-370m with b 4, S 2048 and the
+             padded S 2000, kernel and plain version each against the
+             same function in f64;
+             local_attn at gemma-2b, B 2, S 2048 in bf16
+             and f32, and at RecurrentGemma's window 2048, S 4096); the
+             LSTM step's autograd.Function gradients against autograd of
+             the plain cell; times of kernel, plain version and library
+             call.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, and
@@ -23,7 +29,18 @@ Phases, each fatal on failure (non-zero exit, no final line):
              launch per update, one fold per secure round, every client's
              epsilon equal to the closed form, the non-federated Table II
              columns inside the bounds.
-6. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
+6. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
+             tokens) and gemma-2b (2 x 2048) at full width and depth in
+             bf16, counters reset before and read after each run: exactly
+             one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
+             a finite loss within 2 of ln V, wall time, peak memory and
+             the device's kernels by name; then greedy serving of both at
+             full width in f32 and in the configs' bf16 (see
+             SERVE_DTYPE): ``generate`` and ``generate_ragged``
+             (examples/serve_batched.py's mix), no kernel launched, and
+             ragged equal to independent decoding (held in f32, reported
+             in bf16).
+7. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
              from the same initial weights, without privacy, with DP and
              secure aggregation, and with DP alone (at a smaller clip, see
              AGREE_DP_CLIP): Table II must agree;
@@ -32,6 +49,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
              same inputs;
              and a secure run with dropouts on both, which must recover
              dropped clients and end with the same parameters.
+             The LLM path: decode by replay against the kernel forward (f32,
+             full width, 4 layers, T 64), and the CUDA loss against the CPU
+             loss from the same weights (f32, full width, 2 layers).
 
 The script re-executes itself once with ``PYTHONHASHSEED=0``: the solar
 fleet's weather is seeded with ``hash(site_id)`` (``data/solar.py``, as in
@@ -63,11 +83,15 @@ MAIN_PATH = dict(hidden=128, n_sites=6, n_days=40, rounds=2, epochs=1,
                  n_independent=2, seed=0)
 MAIN_PATH_CUT = ("epochs cut 3 -> 1: the run is host-bound (511 s at 3 "
                  "epochs, 252-348 s at 2 on an H100), and it shares the "
-                 "smoke's 1200 s with the privacy path at epochs 2 (359-459 "
-                 "s); hidden stays 128")
+                 "smoke's 1200 s with the privacy path and the LLM path; "
+                 "hidden stays 128")
 # the committed artifacts/solar_report.json's privacy settings at the full
-# width, with epochs cut from 3 to 2
-PRIVACY_PATH = dict(MAIN_PATH, epochs=2)
+# width, with epochs cut from 3 to 1 (see PRIVACY_PATH_CUT)
+PRIVACY_PATH = dict(MAIN_PATH, epochs=1)
+PRIVACY_PATH_CUT = ("epochs cut 3 -> 1: at 2 the privacy path took 306-459 "
+                    "s on an H100, at 1 it took 156 s, and the smoke now "
+                    "also runs the LLM path inside its 1200 s; hidden stays "
+                    "128")
 PRIVACY = dict(dp_clip=5.0, dp_noise_multiplier=0.3, secure_agg=True)
 # DP without secure aggregation leaves each update's noise (std m * clip per
 # weight) unaveraged; at clip 5 the federated models are chaotic: the CPU
@@ -92,7 +116,37 @@ KERNEL_META = {
                    "src/repro/kernels/ewc_update/ewc_update.py:39"),
     "dp_clip_noise": ("src/repro_torch/kernels/csrc/dp_clip_noise.cu",
                       "src/repro/kernels/dp_clip_noise/dp_clip_noise.py:47"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk/ssd_chunk.py:59"),
+    "local_attn": ("src/repro_torch/kernels/csrc/local_attn.cu",
+                   "src/repro/kernels/local_attn/local_attn.py:90"),
 }
+BF16_TC_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+
+# the LLM path: batched scoring (build_eval_step) and greedy serving
+# (ServeEngine) at the full width and depth of each config, weights random
+# from the seed
+LLM_ARCHS = ("mamba2-370m", "gemma-2b")
+LLM_KERNEL = {"mamba2-370m": "ssd_chunk", "gemma-2b": "local_attn"}
+LLM_SCORING = {"mamba2-370m": (4, 2048), "gemma-2b": (2, 2048)}  # batch, S
+SERVE_PROMPTS, SERVE_NEW = (4, 12), 16          # examples/serve_batched.py
+RAGGED_LENS = (5, 11, 23)
+# serving holds ragged decoding to independent decoding token for token at
+# f32 weights; in the configs' own bf16 the batch size changes cuBLAS's
+# reduction order and the logits' bf16 rounding, so greedy ties may flip:
+# bf16 serving is timed and its equality reported, not held
+SERVE_DTYPE = "float32"
+LLM_DECODE_DEPTH, LLM_DECODE_T, LLM_DECODE_RTOL = 4, 64, 2e-4
+LLM_AGREE_DEPTH, LLM_AGREE_LOSS = 2, 1e-4
+LLM_AGREE_SEQ = {"mamba2-370m": 520, "gemma-2b": 256}   # 520: 3 SSD chunks
+KERNEL_RTOL = 2e-5      # f32 kernel vs plain at path shapes, x max(1, |plain|)
+# ssd_chunk is also held against the same function in f64: the kernel may
+# sit at most SSD_F64_FACTOR times as far from it as its f32 plain version
+# (dA_cum reaches ~200, where an f32 ulp is 1.5e-5, so the order of the
+# in-chunk scan shows there), and the whole chunked scan within
+# KERNEL_RTOL * max|f64| of the f64 scan (the plain oracle's own scan
+# rounds in another order)
+SSD_F64_FACTOR = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -298,13 +352,203 @@ def check_dp(dev, gen):
             "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
+def rel_err(got, want, rtol=KERNEL_RTOL) -> tuple[float, float]:
+    """(max abs err, the f32 path-shape limit rtol * max(1, |want|))."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, rtol * max(1.0, want.float().abs().max().item())
+
+
+def spy_args(module, name: str, run):
+    """The positional arguments of the first call of ``module.name`` while
+    ``run()`` runs: a kernel's inputs as its caller builds them."""
+    seen = []
+    orig = getattr(module, name)
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return orig(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return seen[0]
+
+
+def ssd_scan_inputs(gen, b, s):
+    """mamba2-370m's SSD inputs for ``b`` x ``s`` tokens, drawn as the mixer
+    makes them: x, dt = softplus(.), A = -exp(.), one group of B and C."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import _dims
+
+    cfg = get_config("mamba2-370m")
+    _, h = _dims(cfg)
+    p, n, g = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.n_groups
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=gen.device) * scale
+    return (r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h)),
+            -torch.exp(r(h, scale=0.5)), r(b, s, g, n), r(b, s, g, n))
+
+
+def f64_distance(got, exact) -> float:
+    """max|got - exact| / max|exact|: a route's distance to the answer."""
+    return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def f64_distances(tag, kernel, plain, exact) -> list[tuple[float, float]]:
+    """(kernel route, f32 plain version) distances to the f64 answer of
+    each output, printed."""
+    out = []
+    for what, k, p, e in zip(("y", "states"), kernel, plain, exact,
+                             strict=True):
+        dk, dp = f64_distance(k, e), f64_distance(p, e)
+        print(f"[kernels] {tag} {what}: distance to f64 (x max|f64|) kernel "
+              f"{dk:.3e}, plain f32 {dp:.3e}")
+        out.append((dk, dp))
+    return out
+
+
+def check_ssd(dev, gen):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    ssm = get_config("mamba2-370m").ssm
+    chunk = ssm.chunk_size
+    b, s = LLM_SCORING["mamba2-370m"]
+    err, worst, path = 0.0, 0.0, None
+    for seq in (s, 2000):                       # 2000: the padding path
+        scan = ssd_scan_inputs(gen, b, seq)
+        args = spy_args(ops, "ssd_intra_chunk",
+                        lambda: ops.ssd_chunked_fused(*scan, chunk))
+        (y, st), (yr, sr) = (ops.ssd_intra_chunk(*args),
+                             ssd_intra_chunk_ref(*args))
+        e, lim = rel_err(y, yr)
+        e2, lim2 = rel_err(st, sr)
+        print(f"[kernels] ssd_chunk S={seq}: y_diag err {e:.3e} (limit "
+              f"{lim:.3e}), states err {e2:.3e} (limit {lim2:.3e})")
+        require(e <= lim and e2 <= lim2, f"ssd_chunk at S={seq}: y_diag err "
+                f"{e} (limit {lim}), states err {e2} (limit {lim2})")
+        err = max(err, e, e2)
+        exact = ssd_intra_chunk_ref(*(a.double() for a in args))
+        for dk, dp in f64_distances(f"ssd_chunk S={seq}", (y, st), (yr, sr),
+                                    exact):
+            require(dk <= SSD_F64_FACTOR * dp, f"ssd_chunk at S={seq}: the "
+                    f"kernel is {dk} from f64, its plain version {dp} "
+                    f"(limit x{SSD_F64_FACTOR})")
+        # the whole scan around the kernel against the same scan in f64
+        exact = ssd_chunked(*(a.double() for a in scan), chunk)
+        for dk, _ in f64_distances(f"ssd_chunked_fused S={seq}",
+                                   ops.ssd_chunked_fused(*scan, chunk),
+                                   ssd_chunked(*scan, chunk), exact):
+            require(dk <= KERNEL_RTOL, f"ssd_chunked_fused at S={seq}: {dk} "
+                                       f"x max|f64| from f64")
+            worst = max(worst, dk)
+        if seq == s:
+            path = args
+    print(f"[kernels] ssd_chunked_fused: worst distance to f64 {worst:.3e} x "
+          f"max|f64| (limit {KERNEL_RTOL}); kernel vs f64 at most "
+          f"x{SSD_F64_FACTOR} its plain version's distance")
+    xdt, dA, B, C = path
+    nb, nc, l, h, p = xdt.shape
+    n = B.shape[-1]
+    blocks = nb * nc * h
+    # each input read once, each output written once
+    nbytes = 4 * (xdt.numel() + dA.numel() + B.numel() + C.numel()
+                  + xdt.numel() + blocks * n * p)
+    tri = l * (l + 1) // 2                      # useful pairs, i >= j
+    flops = blocks * (2 * tri * n + tri + 2 * tri * p + l * p + 2 * l * n * p)
+    bms, by = bound(nbytes, flops)
+    # the same outputs from the path's own B and C, one of each per group:
+    # the wrapper's per-head repeat adds (h - g) copies of both and forms
+    # C Bᵀ once per head instead of once per group
+    g = ssm.n_groups
+    extra = nb * nc * (h - g)
+    gbms, gby = bound(nbytes - 4 * 2 * extra * l * n,
+                      flops - extra * 2 * tri * n)
+    print(f"[kernels] ssd_chunk bound from per-group B and C (g={g}): "
+          f"{gbms:.6f} ms ({gby}); from the per-head copies the kernel is "
+          f"given: {bms:.6f} ms ({by})")
+    return {"max_abs_err": err, "shape": f"b={nb}, c={nc}, l={l}, h={h}, "
+                                         f"p={p}, n={n} (S={s})",
+            "ms": cuda_ms(lambda: ops.ssd_intra_chunk(*path), iters=50),
+            "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(*path), iters=10,
+                                warmup=2),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "group_bound_ms": gbms, "gflop": flops / 1e9,
+            "gbytes": nbytes / 1e9}
+
+
+def check_local_attn(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+
+    def qkv(b, h, kv, s, d, dtype):
+        return tuple(torch.randn(b, m, s, d, generator=gen, device=dev)
+                     .to(dtype) for m in (h, kv, kv))
+
+    d = 256
+    scale = d ** -0.5
+    b, s = LLM_SCORING["gemma-2b"]
+    err = 0.0
+    # gemma-2b (H 8, KV 1) in bf16 and f32; RecurrentGemma's local window
+    for h, seq, window, dtype in ((8, s, 0, torch.bfloat16),
+                                  (8, s, 0, torch.float32),
+                                  (16, 4096, 2048, torch.float32)):
+        q, k, v = qkv(1 if window else b, h, 1, seq, d, dtype)
+        got = ops.local_flash_attention(q, k, v, causal=True, window=window,
+                                        scale=scale)
+        want = local_attention_ref(q, k, v, causal=True, window=window,
+                                   scale=scale)
+        e, lim = rel_err(got, want)
+        if dtype == torch.bfloat16:
+            lim = 2e-2
+        require(e <= lim, f"local_attn H={h} S={seq} window={window} "
+                          f"{dtype}: max abs err {e} > {lim}")
+        print(f"[kernels] local_attn H={h} S={seq} window={window} {dtype}: "
+              f"max abs err {e:.3e} (limit {lim:.3e})")
+        err = max(err, e)
+    q, k, v = qkv(b, 8, 1, s, d, torch.bfloat16)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+    lib_err = (library().float() - ops.local_flash_attention(
+        q, k, v, causal=True, scale=scale).float()).abs().max().item()
+    require(lib_err <= 2e-2, f"the SDPA yardstick computes another function "
+                             f"({lib_err})")
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    pairs = b * 8 * s * (s + 1) // 2            # the causal half
+    flops = pairs * 4 * d
+    bms, by = bound(nbytes, flops)
+    return {"max_abs_err": err, "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, "
+                                         "causal, bf16",
+            "ms": cuda_ms(lambda: ops.local_flash_attention(
+                q, k, v, causal=True, scale=scale), iters=20, warmup=3),
+            "plain_ms": cuda_ms(lambda: local_attention_ref(
+                q, k, v, causal=True, window=0, scale=scale), iters=10,
+                warmup=2),
+            "library_ms": cuda_ms(library, iters=20, warmup=3),
+            "bound_ms": bms, "bound_by": by,
+            "bf16_tensor_core_ms": flops / BF16_TC_FLOP_PER_S * 1e3,
+            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for name, check in (("fedavg_agg", check_fedavg), ("lstm_cell", check_lstm),
-                        ("ewc_update", check_ewc), ("dp_clip_noise", check_dp)):
+                        ("ewc_update", check_ewc), ("dp_clip_noise", check_dp),
+                        ("ssd_chunk", check_ssd),
+                        ("local_attn", check_local_attn)):
         res = check(dev, gen)
         torch.cuda.synchronize()
         print(f"[kernels] {name} ({res['shape']}): max_abs_err "
@@ -360,6 +604,7 @@ def counted_run(dev, cfg):
 
 
 MAIN_KERNELS = ("fedavg_agg", "lstm_cell", "ewc_update")
+PRIVACY_KERNELS = MAIN_KERNELS + ("dp_clip_noise",)
 
 
 def phase_main(dev) -> dict:
@@ -376,13 +621,43 @@ def phase_main(dev) -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
+def device_profile(tag, fn, top=8):
+    """Device kernels by name and the device's idle share of one call."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"[{tag}] the profiler recorded no device time")
+        return
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        slot = by_name.setdefault(e.name, [0, 0.0])
+        slot[0] += 1
+        slot[1] += e.time_range.elapsed_us()
+    busy_us = sum(v[1] for v in by_name.values())
+    print(f"[{tag}] profiled call: {wall_us / 1e3:.2f} ms wall, "
+          f"{len(kernels)} device kernels, {busy_us / 1e3:.3f} ms device "
+          f"busy, idle share {1.0 - busy_us / wall_us:.4f}")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+
+
 def phase_profile(dev):
     """Where one anchored SGD step of the main path spends its time: host
     clock per step (with and without the backward), and the device's
     kernels by name from ``torch.profiler``, with the device's busy share
     of the profiled window."""
     import torch
-    from torch.autograd import DeviceType
     from repro_torch.configs.solar_lstm import SolarLSTMConfig
     from repro_torch.core.continual import EWCState
     from repro_torch.models.lstm import SolarForecaster
@@ -418,28 +693,7 @@ def phase_profile(dev):
     print(f"[profile] anchored SGD step (B=8, H={cfg.hidden_size}): "
           f"{step_ms:.2f} ms on the host clock; forward alone {fwd_ms:.2f} ms")
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        sgd_step(params, batch, anchor)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print("[profile] the profiler recorded no device time")
-        return
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        slot = by_name.setdefault(e.name, [0, 0.0])
-        slot[0] += 1
-        slot[1] += e.time_range.elapsed_us()
-    busy_us = sum(v[1] for v in by_name.values())
-    print(f"[profile] one step: {wall_us / 1e3:.2f} ms wall, {len(kernels)} "
-          f"device kernels, {busy_us / 1e3:.3f} ms device busy, idle share "
-          f"{1.0 - busy_us / wall_us:.4f}")
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+    device_profile("profile", lambda: sgd_step(params, batch, anchor), top=12)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -455,12 +709,14 @@ def closed_form_epsilon(steps: int, sigma: float, delta: float) -> float:
 def phase_privacy(dev) -> dict:
     cfg = dict(PRIVACY_PATH, **PRIVACY)
     report, counts, wall = counted_run(dev, cfg)
+    print(f"[privacy] {PRIVACY_PATH_CUT}")
     print(f"[privacy] run_fedccl_solar({cfg}) on {dev}: {wall:.1f} s")
     print(f"[privacy] card: {card_line()}")
     print_report(report, "privacy")
     print(f"[privacy] launches {json.dumps(counts)}")
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} never launched on the privacy path")
+    for name in PRIVACY_KERNELS:
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                                  "privacy path")
     stats = report["async_stats"]
     require(stats["secure_rounds"] > 0, "no secure round folded")
     require(stats["secure_recoveries"] == 0,
@@ -496,6 +752,188 @@ def phase_privacy(dev) -> dict:
 
 
 # ------------------------------------------------------------------ phase 6
+def llm_model(arch, dev, dtype=None, depth=None, generator=None):
+    """(cfg, model, params) of ``arch`` at full width, weights random from
+    the seed: drawn on the card (a CUDA generator) unless ``generator``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    model = build_model(cfg)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    return cfg, model, model.init(gen, dev)
+
+
+def score(dev, arch) -> dict:
+    """``build_eval_step`` at full width in the config's own dtype, counters
+    set to 0 just before each run and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.data.lm_synth import lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.train_step import build_eval_step
+
+    t0 = time.perf_counter()
+    cfg, model, params = llm_model(arch, dev)
+    torch.cuda.synchronize()
+    print(f"[llm] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}) initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    b, seq = LLM_SCORING[arch]
+    batch = lm_batch(np.random.default_rng(0), b, seq, cfg.vocab_size)
+    eval_step = build_eval_step(model, cfg)
+    want = {name: 0 for name in launch_counts()}
+    want[LLM_KERNEL[arch]] = cfg.n_layers
+    first = None
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eval_step(params, batch)
+        loss = out["loss"].item()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[llm] score {arch} batch {b} x {seq} ({run}): loss {loss:.6f} "
+              f"(ln V = {math.log(cfg.vocab_size):.6f}), {wall * 1e3:.1f} ms "
+              f"wall, {b * seq / wall:.0f} tokens/s, peak memory {peak:.2f} "
+              f"GiB, launches {json.dumps(counts)}")
+        require(counts == want, f"{arch} scoring launched {counts}, expected "
+                                f"{want}")
+        require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size))
+                < 2.0, f"{arch} loss {loss} is not within 2 of ln V")
+        first = first or counts
+    device_profile(f"llm {arch}", lambda: eval_step(params, batch))
+    return first
+
+
+def serve(dev, arch, dtype=None):
+    """Greedy ``ServeEngine.generate`` and ``generate_ragged`` at full width
+    and depth (``dtype`` weights, the config's own when None), no kernel
+    launched; ragged decoding is held to independent decoding at
+    ``SERVE_DTYPE`` and reported in any other dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg, model, params = llm_model(arch, dev, dtype=dtype)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, SERVE_PROMPTS).astype(np.int32)
+    reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in RAGGED_LENS]
+    eng = ServeEngine(model, params, max_len=96)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, SERVE_NEW)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ragged = eng.generate_ragged(reqs, SERVE_NEW)
+    t_rag = time.perf_counter() - t0
+    counts = launch_counts()
+    require(out.shape == (SERVE_PROMPTS[0], SERVE_NEW) and ((out >= 0) & (
+        out < cfg.vocab_size)).all(), f"{arch}: generate gave {out.shape}")
+    require(all(n == 0 for n in counts.values()),
+            f"{arch}: serving launched kernels {counts}; the reference's "
+            "decode reaches neither")
+    differ = []
+    for i, r in enumerate(reqs):
+        solo = eng.generate(r[None], SERVE_NEW)[0]
+        if not (ragged[i] == solo).all():
+            differ.append(i)
+            print(f"[llm] serve {arch} ({cfg.dtype}): ragged request {i} "
+                  f"{ragged[i].tolist()} != independent {solo.tolist()}")
+    require(cfg.dtype != SERVE_DTYPE or not differ,
+            f"{arch}: ragged requests {differ} differ from independent "
+            "decoding")
+    verdict = ("equal to independent decoding" if not differ else
+               f"requests {differ} differ from independent decoding (not "
+               f"held in {cfg.dtype})")
+    print(f"[llm] serve {arch} ({cfg.dtype}): generate {out.shape[0]}x"
+          f"{SERVE_PROMPTS[1]} prompts -> {SERVE_NEW} new in {t_gen:.3f} s "
+          f"({out.size / t_gen:.1f} new tokens/s, prefill by replay "
+          f"included); ragged {list(RAGGED_LENS)} -> {SERVE_NEW} new in "
+          f"{t_rag:.3f} s ({ragged.size / t_rag:.1f} new tokens/s), "
+          f"{verdict}; launches {json.dumps(counts)}; sample "
+          f"{out[0, :8].tolist()}")
+
+
+def phase_llm(dev) -> dict:
+    import torch
+
+    counts = {}
+    for arch in LLM_ARCHS:
+        for name, n in score(dev, arch).items():
+            counts[name] = counts.get(name, 0) + n
+        torch.cuda.empty_cache()
+    print(f"[llm] card: {card_line()}")
+    for arch in LLM_ARCHS:
+        for dtype in (SERVE_DTYPE, None):       # None: the config's own
+            serve(dev, arch, dtype)
+            torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llm_agree(dev):
+    """Decode by replay (no kernel) against the kernel forward on the card,
+    in f32 at full width and cut depth; and the CUDA forward against the
+    CPU forward (plain versions) from the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.data.lm_synth import lm_batch
+    from repro_torch.training.train_step import build_eval_step
+    from repro_torch.utils.tree import tree_map
+
+    for arch in LLM_ARCHS:
+        cfg, model, params = llm_model(arch, dev, dtype="float32",
+                                       depth=LLM_DECODE_DEPTH)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, LLM_DECODE_T)), device=dev)
+        with torch.no_grad():
+            full, _ = model.forward(params, tokens=toks)
+            caches = model.init_caches(2, LLM_DECODE_T, torch.float32, dev)
+            err = 0.0
+            for t in range(LLM_DECODE_T):
+                lg, caches = model.decode_step(params, caches,
+                                               toks[:, t:t + 1], t)
+                err = max(err, (lg[:, 0] - full[:, t]).abs().max().item())
+        lim = LLM_DECODE_RTOL * max(1.0, full.abs().max().item())
+        print(f"[agree] {arch} f32, depth {LLM_DECODE_DEPTH}, T "
+              f"{LLM_DECODE_T}: decode by replay vs the kernel forward, max "
+              f"abs err {err:.3e} (limit {lim:.3e})")
+        require(err <= lim, f"{arch}: decode and forward differ by {err}")
+        del params, caches
+        torch.cuda.empty_cache()
+
+        cfg, model, cpu_params = llm_model(
+            arch, "cpu", dtype="float32", depth=LLM_AGREE_DEPTH,
+            generator=torch.Generator().manual_seed(3))
+        seq = LLM_AGREE_SEQ[arch]
+        batch = lm_batch(np.random.default_rng(2), 2, seq, cfg.vocab_size)
+        eval_step = build_eval_step(model, cfg)
+        t0 = time.perf_counter()
+        cpu_loss = eval_step(cpu_params, batch)["loss"].item()
+        t_cpu = time.perf_counter() - t0
+        gpu_loss = eval_step(tree_map(lambda x: x.to(dev), cpu_params),
+                             batch)["loss"].item()
+        gap = abs(gpu_loss - cpu_loss)
+        print(f"[agree] {arch} f32, depth {LLM_AGREE_DEPTH}, batch 2 x {seq}: "
+              f"loss CUDA {gpu_loss:.7f} vs CPU {cpu_loss:.7f}, gap "
+              f"{gap:.3e} (limit {LLM_AGREE_LOSS}); CPU forward {t_cpu:.1f} s")
+        require(gap <= LLM_AGREE_LOSS, f"{arch}: CUDA and CPU losses differ "
+                                       f"by {gap}")
+        del cpu_params
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 7
 def table_gap(a, b, same_nan=True) -> float:
     """Largest Table II / §IV.E gap in pp over the entries that are NaN in
     neither run; with ``same_nan`` NaN must sit in the same places."""
@@ -673,7 +1111,9 @@ def main() -> int:
         counts = {"main": phase_main(dev)}
         phase_profile(dev)
         counts["privacy"] = phase_privacy(dev)
+        counts["llm"] = phase_llm(dev)
         phase_agree(dev)
+        phase_llm_agree(dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -688,7 +1128,9 @@ def main() -> int:
                 "bound_ms": results[name]["bound_ms"],
                 "bound_by": results[name]["bound_by"],
                 "library_ms": results[name]["library_ms"],
-                "shape": results[name]["shape"]}
+                **{k: results[name][k] for k in
+                   ("shape", "bf16_tensor_core_ms", "group_bound_ms")
+                   if k in results[name]}}
                for name, (src, replaces) in KERNEL_META.items()]
     print(f"[done] {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,22 @@
+"""GLM-4-9B — dense, RoPE, GQA kv=2.
+
+[hf:THUDM/glm-4-9b] 40L d_model=4096 32H (GQA kv=2) d_ff=13696 vocab=151552.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="glm4-9b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=2,
+    head_dim=128,
+    d_ff=13696,
+    vocab_size=151_552,
+    mlp_activation="silu",
+    rope_theta=10_000.0,
+    qkv_bias=True,
+    citation="hf:THUDM/glm-4-9b",
+)

@@ -11,7 +11,8 @@ The device decides the route; there is no switch and no fallback.  The
 CUDA sources build at first use (``build.py``).
 """
 
-KERNELS = ("fedavg_agg", "lstm_cell", "ewc_update", "dp_clip_noise")
+KERNELS = ("fedavg_agg", "lstm_cell", "ewc_update", "dp_clip_noise",
+           "ssd_chunk", "local_attn")
 
 
 def _ops(name: str):

@@ -35,6 +35,9 @@ SIGNATURES = {
     "lstm_cell_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ewc_update_launch": [_F, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "dp_clip_noise_launch": [_P, _P, _F, _F, _L, _P, _P, _P],
+    "ssd_chunk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "local_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _I, _I, _P],
 }
 
 _lib = None

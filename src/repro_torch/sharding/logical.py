@@ -1,9 +1,11 @@
 """Parameter schemas: shape + logical axis names + init kind per leaf.
 
-The port keeps the schema and its initializer; the mesh rules of the JAX
-package (``PartitionSpec`` trees) arrive with the distribution slice.
-Draws come from a ``torch.Generator`` on the CPU, in schema order, and are
-then moved to the target device; they do not reproduce JAX's PRNG, so
+The port keeps the schema, its initializer, the scan-over-layers stacking
+and the shapes; the mesh rules of the JAX package (``PartitionSpec`` trees)
+arrive with the distribution slice, so ``constrain`` is the identity.
+Draws are made on the given ``torch.Generator``'s own device (a CUDA
+generator fills a full-width model on the card), in schema order, then
+cast and placed on the target device; they do not reproduce JAX's PRNG, so
 parity runs pass JAX-initialised params through the weights bridge
 (``utils.tree.params_from_numpy``).
 """
@@ -40,7 +42,10 @@ def _init_leaf(ps: ParamSpec, generator: torch.Generator,
                   else max(1, shape[0] if shape else 1))
         std = ps.scale if ps.scale is not None else \
             1.0 / max(1.0, np.sqrt(fan_in))
-    draw = torch.randn(shape, generator=generator, dtype=torch.float32)
+    # drawn on the generator's own device: a CUDA generator fills a
+    # multi-billion-parameter model on the card
+    draw = torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
     return (draw * std).to(dtype)
 
 
@@ -52,3 +57,37 @@ def init_from_schema(schema: dict, generator: torch.Generator, device,
                 for k, v in node.items()}
 
     return go(schema)
+
+
+def schema_shapes(schema: dict, default_dtype: torch.dtype = torch.float32) -> dict:
+    """The schema as ``meta`` tensors: shapes and dtypes, no storage."""
+    def go(node):
+        return {k: (go(v) if isinstance(v, dict) else
+                    torch.empty(tuple(v.shape), device="meta",
+                                dtype=getattr(torch, v.dtype) if v.dtype
+                                else default_dtype))
+                for k, v in node.items()}
+
+    return go(schema)
+
+
+def stack_schema(schema: dict, n: int) -> dict:
+    """Prepend a scanned 'layers' axis to every leaf (scan-over-layers).
+    The initializer's fan-in of a stacked matrix then includes the layer
+    axis (``prod(shape[:-1])``), as in the reference."""
+
+    def go(node):
+        return {
+            k: (go(v) if isinstance(v, dict) else
+                ParamSpec((n,) + tuple(v.shape), ("layers",) + tuple(v.logical),
+                          v.init, v.scale, v.dtype))
+            for k, v in node.items()
+        }
+
+    return go(schema)
+
+
+def constrain(x, logical: tuple, rules=None):
+    """Sharding constraint by logical axes: the identity until the port has
+    a device mesh."""
+    return x

@@ -57,11 +57,32 @@ def unflatten_params(flat: torch.Tensor, template):
     return go(template)
 
 
+def _from_numpy(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (what JAX hands numpy) has no torch
+        # counterpart in torch.from_numpy: carry its bits as int16
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes   # only for bf16 trees; ships with JAX and numpy users
+
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
 def params_from_numpy(tree, device) -> dict:
     """A tree of numpy arrays (e.g. JAX params through ``np.asarray``) as
-    tensors on ``device``; always copies."""
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device), tree)
+    tensors on ``device``; always copies.  bfloat16 arrays keep their bits."""
+    return tree_map(lambda x: _from_numpy(x, device), tree)
 
 
 def params_to_numpy(tree) -> dict:
-    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    """Inverse of ``params_from_numpy``; bfloat16 tensors become
+    ``ml_dtypes.bfloat16`` arrays, bit for bit."""
+    return tree_map(_to_numpy, tree)

@@ -8,6 +8,22 @@ parameters at hidden 128, H = 128 with I = 9 or 10.  Tolerances: fold
 atol 1e-6 (N-way f32 sums in the same order), step atol 1e-5, anchor
 gradient rtol/atol 1e-5 and loss rtol 1e-4, DP release atol 1e-5 (the
 reference tests' own).
+
+The LLM kernels: ``local_attn`` and ``ssd_chunk`` on the reference sweep
+shapes (``tests/test_kernels.py``) at the reference tolerances, atol 2e-5
+in f32 and 2e-2 in bf16; at the full path shapes (gemma-2b: H 8, KV 1,
+D 256, S 2048; RecurrentGemma's window 2048 at S 4096; mamba2-370m: l 256,
+h 32, p 64, n 128 over 2048 tokens) the f32 bound is relative,
+max|kernel - plain| <= 2e-5 * max(1, max|plain|), since there sums run
+over up to 2048 keys or 256 x 128 products in another order; bf16 stays
+at 2e-2.  The SSD at mamba2-370m's shapes is also held against the same
+function evaluated in f64: there dA_cum reaches ~200 in magnitude, where
+an f32 ulp is 1.5e-5, so the order of the in-chunk scan shows.  The
+kernel may sit at most twice as far from the f64 answer as its plain
+version, and the whole chunked scan within 2e-5 * max|f64| of the f64
+scan (the plain oracle ``ssd_chunked`` takes its cumsum in another
+order).  The reduced models' forward on the card matches the CPU
+forward at atol 5e-5.
 """
 
 import pytest
@@ -23,13 +39,21 @@ from repro_torch.kernels.ewc_update.ref import ewc_ref
 from repro_torch.kernels.fedavg_agg.ops import aggregate_flat
 from repro_torch.kernels.fedavg_agg.ref import agg_ref
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_step
+from repro_torch.kernels.local_attn.ops import local_flash_attention
+from repro_torch.kernels.local_attn.ref import local_attention_ref
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+from repro_torch.kernels.ssd_chunk.ops import ssd_chunked_fused, ssd_intra_chunk
+from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+from repro_torch.configs import get_config, reduced_for_smoke
+from repro_torch.models.model import build_model
+from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models.lstm import SolarForecaster
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
 from repro_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 T = 141_953
+SSD_F64_FACTOR = 2.0    # kernel's distance to f64 over the plain version's
 
 
 @pytest.fixture
@@ -162,3 +186,169 @@ def test_forecaster_on_card_matches_cpu(cuda):
                                             + fc.cfg.horizon_steps)
     torch.testing.assert_close(got.cpu(), fc.forward(params, hist, fcst),
                                rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------- LLM kernels
+def full_close(got, want, what, rtol=2e-5):
+    """The full-shape bound stated in the module docstring."""
+    err = (got.float() - want.float()).abs().max().item()
+    lim = rtol * max(1.0, want.float().abs().max().item())
+    assert err <= lim, f"{what}: max abs err {err} > {lim}"
+
+
+def attn_case(gen, b, h, kv, s, d, dtype):
+    return tuple(randn(gen, b, n, s, d).to(dtype) for n in (h, kv, kv))
+
+
+@pytest.mark.parametrize("H,KV,S,causal,window,dtype", [
+    (4, 2, 64, True, 0, torch.float32),
+    (4, 1, 96, True, 32, torch.float32),
+    (2, 2, 64, False, 0, torch.float32),
+    (8, 4, 128, True, 64, torch.float32),
+    (4, 2, 64, True, 16, torch.bfloat16),
+    (4, 2, 50, True, 0, torch.float32),       # S, T padded to the tile
+])
+def test_local_attn_kernel_matches_plain_on_the_sweep(H, KV, S, causal,
+                                                      window, dtype, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(S * 10 + H)
+    q, k, v = attn_case(gen, 2, H, KV, S, 32, dtype)
+    before = launch_counts()["local_attn"]
+    out = local_flash_attention(q, k, v, causal=causal, window=window,
+                                scale=0.18)
+    assert launch_counts()["local_attn"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = local_attention_ref(q, k, v, causal=causal, window=window,
+                               scale=0.18)
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 256])
+def test_local_attn_kernel_takes_every_head_dim(D, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = attn_case(gen, 1, 2, 1, 80, D, torch.float32)
+    out = local_flash_attention(q, k, v, causal=True, window=24,
+                                scale=D ** -0.5)
+    want = local_attention_ref(q, k, v, causal=True, window=24,
+                               scale=D ** -0.5)
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+
+
+def test_local_attn_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 1, 32, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        local_flash_attention(q, q, q)
+
+
+def test_local_attn_window_actually_limits_context(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    S, W = 64, 8
+    q, k, v = attn_case(gen, 1, 2, 2, S, 16, torch.float32)
+    out1 = local_flash_attention(q, k, v, causal=True, window=W, scale=0.25)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, :S - 2 * W] = 99.0
+    v2[:, :, :S - 2 * W] = -99.0
+    out2 = local_flash_attention(q, k2, v2, causal=True, window=W, scale=0.25)
+    torch.testing.assert_close(out1[:, :, -1], out2[:, :, -1], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,s,window,dtype", [
+    (2, 8, 2048, 0, torch.bfloat16),       # gemma-2b's scoring path
+    (2, 8, 2048, 0, torch.float32),
+    (1, 16, 4096, 2048, torch.float32),    # RecurrentGemma's local window
+])
+def test_local_attn_kernel_at_the_path_shapes(b, h, s, window, dtype, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(h + window)
+    q, k, v = attn_case(gen, b, h, 1, s, 256, dtype)
+    out = local_flash_attention(q, k, v, causal=True, window=window,
+                                scale=256 ** -0.5)
+    want = local_attention_ref(q, k, v, causal=True, window=window,
+                               scale=256 ** -0.5)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                                   atol=2e-2)
+    else:
+        full_close(out, want, "local_attn")
+
+
+def ssd_inputs(gen, b, l, h, p, g, n):
+    x = randn(gen, b, l, h, p)
+    dt = torch.nn.functional.softplus(randn(gen, b, l, h))
+    A = -torch.exp(randn(gen, h, scale=0.5))
+    return x, dt, A, randn(gen, b, l, g, n), randn(gen, b, l, g, n)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", [
+    (1, 16, 2, 4, 1, 8, 4),
+    (2, 32, 4, 8, 2, 16, 8),
+    (1, 20, 2, 16, 1, 32, 8),     # l not divisible by chunk (padding path)
+])
+def test_ssd_kernel_matches_plain_on_the_sweep(b, l, h, p, g, n, chunk, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(l * 10 + n)
+    args = ssd_inputs(gen, b, l, h, p, g, n)
+    before = launch_counts()["ssd_chunk"]
+    y, s = ssd_chunked_fused(*args, chunk)
+    assert launch_counts()["ssd_chunk"] == before + 1
+    yr, sr = ssd_chunked(*args, chunk)
+    torch.testing.assert_close(y, yr, rtol=0, atol=2e-5)
+    torch.testing.assert_close(s, sr, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s", [(4, 2048), (4, 2000), (1, 520)])
+def test_ssd_kernel_at_the_path_shapes(b, s, cuda):
+    """mamba2-370m: l 256, h 32, p 64, n 128, one group; 2000 and 520
+    tokens take the padding path."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x, dt, A, B, C = ssd_inputs(gen, b, s, 32, 64, 1, 128)
+    c = -(-s // 256)
+    pad = c * 256 - s
+    xdt = torch.nn.functional.pad(x * dt[..., None], (0, 0, 0, 0, 0, pad))
+    dA = torch.nn.functional.pad(dt * A, (0, 0, 0, pad))
+    Bh = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad)).expand(
+        b, c * 256, 32, 128)
+    Ch = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad)).expand(
+        b, c * 256, 32, 128)
+    args = [t.reshape(b, c, 256, *t.shape[2:]).contiguous()
+            for t in (xdt, dA, Bh, Ch)]
+    y, st = ssd_intra_chunk(*args)
+    yr, sr = ssd_intra_chunk_ref(*args)
+    full_close(y, yr, "ssd_chunk y_diag")
+    full_close(st, sr, "ssd_chunk states")
+    exact = ssd_intra_chunk_ref(*(t.double() for t in args))
+    for k, p, e in zip((y, st), (yr, sr), exact, strict=True):
+        assert f64_distance(k, e) <= SSD_F64_FACTOR * f64_distance(p, e)
+    exact = ssd_chunked(*(t.double() for t in (x, dt, A, B, C)), 256)
+    for k, e in zip(ssd_chunked_fused(x, dt, A, B, C, 256), exact,
+                    strict=True):
+        assert f64_distance(k, e) <= 2e-5
+
+
+def f64_distance(got, exact):
+    """max|got - exact| / max|exact|."""
+    return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def test_ssd_kernel_refuses_states_it_cannot_hold(cuda):
+    x = torch.zeros(1, 1, 8, 1, 65, device=cuda)
+    bc = torch.zeros(1, 1, 8, 1, 4, device=cuda)
+    with pytest.raises(ValueError, match="head_dim <= 64"):
+        ssd_intra_chunk(x, x[..., 0].contiguous(), bc, bc)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "gemma-2b"])
+def test_llm_forward_on_card_matches_cpu(arch, cuda):
+    """The reduced model: one kernel launch per layer on the card, and the
+    logits of the plain route on the CPU."""
+    cfg = reduced_for_smoke(get_config(arch))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = model.forward(params, tokens=toks)
+    reset_launch_counts()
+    got, _ = model.forward(tree_map(lambda x: x.to(cuda), params),
+                           tokens=toks.to(cuda))
+    name = "ssd_chunk" if arch == "mamba2-370m" else "local_attn"
+    assert launch_counts()[name] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-5)

@@ -5,7 +5,9 @@ version; the JAX side runs its Pallas kernels in interpret mode, as
 ``tests/test_kernels.py`` does.  Inputs come from one seeded numpy
 generator and go through both.  Tolerances are those of
 ``tests/test_kernels.py``: atol 1e-5 for the fold and the LSTM step,
-rtol/atol 1e-5 for the anchor gradient with rtol 1e-4 on its loss.
+rtol/atol 1e-5 for the anchor gradient with rtol 1e-4 on its loss;
+windowed attention at atol 2e-5 in f32 and 2e-2 in bf16, the chunked SSD
+at atol 2e-5.
 
 The kernels themselves are held against the plain versions on the card in
 ``tests/test_torch_cuda.py``.
@@ -20,7 +22,12 @@ import torch
 from repro.kernels.ewc_update.ops import ewc_penalty_grad_flat as jax_ewc
 from repro.kernels.fedavg_agg.ops import aggregate_flat as jax_agg_flat
 from repro.kernels.fedavg_agg.ops import aggregate_pytrees as jax_agg_trees
+from repro.kernels.local_attn.ops import local_flash_attention as jax_local_attn
+from repro.kernels.local_attn.ref import local_attention_ref as jax_local_attn_ref
 from repro.kernels.lstm_cell.ops import lstm_cell_fused as jax_lstm_fused
+from repro.kernels.ssd_chunk.ops import ssd_chunked_pallas as jax_ssd_pallas
+from repro.kernels.ssd_chunk.ref import ssd_ref as jax_ssd_ref
+from repro.kernels.ssd_chunk.ssd_chunk import ssd_intra_chunk as jax_ssd_intra
 from repro.models.lstm import lstm_cell as jax_model_cell
 from repro_torch.core.aggregation import _pad_pow2
 from repro_torch.kernels import build, launch_counts, reset_launch_counts
@@ -35,7 +42,12 @@ from repro_torch.kernels.fedavg_agg.ops import (
 )
 from repro_torch.kernels.fedavg_agg.ref import agg_ref
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_cell_fused, lstm_step
+from repro_torch.kernels.local_attn.ops import local_flash_attention
+from repro_torch.kernels.local_attn.ref import local_attention_ref
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+from repro_torch.kernels.ssd_chunk.ops import ssd_chunked_fused, ssd_intra_chunk
+from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+from repro_torch.models.ssm import ssd_chunked
 
 
 def t32(a):
@@ -186,6 +198,150 @@ def test_lstm_fn_backward_matches_autograd_of_plain_cell(rng):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
+# ------------------------------------------------------------- local_attn
+def to_np(t):
+    return t.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("H,KV,S,causal,window,dtype", [
+    (4, 2, 64, True, 0, "float32"),
+    (4, 1, 96, True, 32, "float32"),
+    (2, 2, 64, False, 0, "float32"),
+    (8, 4, 128, True, 64, "float32"),
+    (4, 2, 64, True, 16, "bfloat16"),
+])
+def test_local_attn_plain_matches_jax_kernel(H, KV, S, causal, window, dtype,
+                                            rng):
+    """The reference sweep (``tests/test_kernels.py``): JAX's Pallas kernel
+    in interpret mode against the port's wrapper (plain route on the CPU)
+    and its plain version, at atol 2e-5 in f32 and 2e-2 in bf16."""
+    arrs = [rng.standard_normal((2, n, S, 32)).astype(np.float32)
+            for n in (H, KV, KV)]
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
+    q, k, v = (torch.tensor(np.asarray(a.astype(jnp.float32)))
+               .to(getattr(torch, dtype)) for a in (jq, jk, jv))
+    ref = np.asarray(jax_local_attn(jq, jk, jv, causal=causal, window=window,
+                                    scale=0.18, blk_q=32, blk_k=32),
+                     np.float32)
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    out = local_flash_attention(q, k, v, causal=causal, window=window,
+                                scale=0.18)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    np.testing.assert_allclose(to_np(out), ref, atol=atol)
+    plain = local_attention_ref(q, k, v, causal=causal, window=window,
+                                scale=0.18)
+    jplain = jax_local_attn_ref(jq, jk, jv, causal=causal, window=window,
+                                scale=0.18)
+    np.testing.assert_allclose(to_np(plain), np.asarray(jplain, np.float32),
+                               atol=atol)
+
+
+def test_local_attn_window_actually_limits_context(rng):
+    """Tokens outside the window must not influence the output."""
+    S, W = 64, 8
+    q, k, v = (t32(rng.standard_normal((1, 2, S, 16))) for _ in range(3))
+    out1 = local_flash_attention(q, k, v, causal=True, window=W, scale=0.25)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, :S - 2 * W] = 99.0
+    v2[:, :, :S - 2 * W] = -99.0
+    out2 = local_flash_attention(q, k2, v2, causal=True, window=W, scale=0.25)
+    np.testing.assert_allclose(out1[:, :, -1].numpy(), out2[:, :, -1].numpy(),
+                               atol=1e-5)
+    ref = jax_local_attn(jnp.asarray(q.numpy()), jnp.asarray(k2.numpy()),
+                         jnp.asarray(v2.numpy()), causal=True, window=W,
+                         scale=0.25, blk_q=16, blk_k=16)
+    np.testing.assert_allclose(out2.numpy(), np.asarray(ref), atol=2e-5)
+
+
+# ------------------------------------------------------------- ssd_chunk
+def ssd_case(rng, b, c, l, h, p, n):
+    """Head-broadcast kernel inputs: xdt, dA (negative), B, C."""
+    return (t32(rng.standard_normal((b, c, l, h, p))),
+            t32(-np.abs(rng.standard_normal((b, c, l, h))) * 0.5),
+            t32(rng.standard_normal((b, c, l, h, n))),
+            t32(rng.standard_normal((b, c, l, h, n))))
+
+
+@pytest.mark.parametrize("b,c,l,h,p,n", [(1, 2, 4, 2, 4, 8),
+                                         (2, 3, 8, 4, 8, 16),
+                                         (1, 1, 32, 2, 16, 32)])
+def test_ssd_intra_chunk_plain_matches_jax_kernel(b, c, l, h, p, n, rng):
+    """The kernel's own function against JAX's kernel in interpret mode.
+    Outputs reach ~30 here (sums of l * n unit products), so the bound is
+    atol 2e-5 plus rtol 1e-5: f32 sums taken in another order."""
+    args = ssd_case(rng, b, c, l, h, p, n)
+    jy, jst = jax_ssd_intra(*(jnp.asarray(a.numpy()) for a in args))
+    for fn in (ssd_intra_chunk, ssd_intra_chunk_ref):
+        y, st = fn(*args)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("b,c,l,h,p,n", [(1, 2, 4, 2, 4, 8),
+                                         (2, 3, 8, 4, 8, 16),
+                                         (1, 1, 32, 2, 16, 32)])
+def test_ssd_intra_chunk_plain_computes_f64_inputs_in_f64(b, c, l, h, p, n,
+                                                          rng):
+    """The exact answer the card measures both f32 routes from: f64 inputs
+    give f64 outputs, nearer JAX's f32 kernel than its own tolerance and
+    within f32 rounding of the f32 plain version."""
+    args = ssd_case(rng, b, c, l, h, p, n)
+    jy, jst = jax_ssd_intra(*(jnp.asarray(a.numpy()) for a in args))
+    exact = ssd_intra_chunk_ref(*(a.double() for a in args))
+    for got, want, f32 in zip(exact, (jy, jst), ssd_intra_chunk_ref(*args),
+                              strict=True):
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(f32.double().numpy(), got.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", [
+    (1, 16, 2, 4, 1, 8, 4),
+    (2, 32, 4, 8, 2, 16, 8),
+    (1, 20, 2, 16, 1, 32, 8),     # l not divisible by chunk (padding path)
+])
+def test_ssd_chunked_matches_jax(b, l, h, p, g, n, chunk, rng):
+    """The reference sweep: the port's fused scan (plain intra-chunk route
+    on the CPU) and its plain oracle against JAX's Pallas scan (interpret
+    mode) and JAX's oracle, at atol 2e-5."""
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = np.asarray(jax.nn.softplus(jnp.asarray(
+        rng.standard_normal((b, l, h)), jnp.float32)))
+    A = np.asarray(-jnp.exp(jnp.asarray(rng.standard_normal(h) * 0.5,
+                                        jnp.float32)))
+    B = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    C = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, dt, A, B, C)]
+    jy, js = jax_ssd_pallas(*jargs, chunk)
+    ry, rs = jax_ssd_ref(*jargs, chunk)
+    targs = [t32(a) for a in (x, dt, A, B, C)]
+    for fn in (ssd_chunked_fused, ssd_chunked):
+        y, s = fn(*targs, chunk)
+        assert y.shape == (b, l, h, p) and s.shape == (b, h, p, n)
+        for want_y, want_s in ((jy, js), (ry, rs)):
+            np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=2e-5)
+            np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=2e-5)
+
+
+def test_ssd_chunked_carries_an_initial_state(rng):
+    b, l, h, p, n, chunk = 1, 12, 2, 4, 8, 4
+    x, B, C = (t32(rng.standard_normal(s)) for s in
+               ((b, l, h, p), (b, l, 1, n), (b, l, 1, n)))
+    dt = t32(np.abs(rng.standard_normal((b, l, h))))
+    A = t32(-np.abs(rng.standard_normal(h)))
+    s0 = t32(rng.standard_normal((b, h, p, n)))
+    jy, js = jax_ssd_ref(*(jnp.asarray(t.numpy()) for t in (x, dt, A, B, C)),
+                         chunk, jnp.asarray(s0.numpy()))
+    for fn in (ssd_chunked_fused, ssd_chunked):
+        y, s = fn(x, dt, A, B, C, chunk, s0)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=2e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=2e-5)
+
+
 # ---------------------------------------------------------------- routing
 def test_cpu_calls_run_the_plain_versions_and_count_nothing(rng):
     reset_launch_counts()
@@ -194,8 +350,14 @@ def test_cpu_calls_run_the_plain_versions_and_count_nothing(rng):
     aggregate_flat(torch.stack([x[0], x[1]]), [0.5, 0.5])
     ewc_penalty_grad_flat(0.1, x[0], x[1], x[0])
     privatize_flat(x[0], x[1], 1.0, 0.5)
+    q = t32(rng.standard_normal((1, 2, 5, 16)))
+    local_flash_attention(q, q[:, :1], q[:, :1], causal=True, window=0,
+                          scale=0.25)
+    xdt, dA, B, C = ssd_case(rng, 1, 1, 4, 2, 3, 5)
+    ssd_intra_chunk(xdt, dA, B, C)
     assert launch_counts() == {"fedavg_agg": 0, "lstm_cell": 0,
-                               "ewc_update": 0, "dp_clip_noise": 0}
+                               "ewc_update": 0, "dp_clip_noise": 0,
+                               "ssd_chunk": 0, "local_attn": 0}
 
 
 def test_wrappers_refuse_devices_without_a_route():
@@ -206,6 +368,12 @@ def test_wrappers_refuse_devices_without_a_route():
         ewc_penalty_grad_flat(0.1, m[0], m[0], m[0])
     with pytest.raises(ValueError, match="no route"):
         privatize_flat(m[0], m[0], 1.0, 0.5)
+    q = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no route"):
+        local_flash_attention(q, q, q)
+    x = torch.empty(1, 1, 4, 2, 3, device="meta")
+    with pytest.raises(ValueError, match="no route"):
+        ssd_intra_chunk(x, x[..., 0], x, x)
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
