@@ -11,11 +11,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
              kernels: ssd_chunk at mamba2-370m with b 4, S 2048 and the
              padded S 2000, kernel and plain version each against the
              same function in f64;
-             local_attn at gemma-2b, B 2, S 2048 in bf16
-             and f32, and at RecurrentGemma's window 2048, S 4096); the
-             LSTM step's autograd.Function gradients against autograd of
-             the plain cell; times of kernel, plain version and library
-             call.
+             local_attn at gemma-2b, B 2, S 2048 in bf16 (the tensor-core
+             route, also against the same function in f64) and f32, and at
+             RecurrentGemma's window 2048, S 4096); the LSTM step's
+             autograd.Function gradients against autograd of the plain
+             cell; times of kernel (back to back, and its own device time
+             from torch.profiler), plain version and library call.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, and
@@ -34,8 +35,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
              bf16, counters reset before and read after each run: exactly
              one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
              a finite loss within 2 of ln V, wall time, peak memory and
-             the device's kernels by name; then greedy serving of both at
-             full width in f32 and in the configs' bf16 (see
+             the device's kernels by name, gemma's 18 launches all on
+             local_attn's tensor-core route (``ops.launches_tc``); then
+             greedy serving of both at full width in f32 and in the
+             configs' bf16 (see
              SERVE_DTYPE): ``generate`` and ``generate_ragged``
              (examples/serve_batched.py's mix), no kernel launched, and
              ragged equal to independent decoding (held in f32, reported
@@ -76,6 +79,7 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet) for the least-time bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12     # dense bf16 on the tensor cores
 
 # examples/solar_forecasting.py's default run at the full SolarLSTMConfig
 # width, with epochs cut from 3 to 1 (see MAIN_PATH_CUT)
@@ -118,10 +122,21 @@ KERNEL_META = {
                       "src/repro/kernels/dp_clip_noise/dp_clip_noise.py:47"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk/ssd_chunk.py:59"),
-    "local_attn": ("src/repro_torch/kernels/csrc/local_attn.cu",
+    # the LLM path's bf16 calls take the tensor-core kernel; f32 and head
+    # dims 16, 32 take csrc/local_attn.cu
+    "local_attn": ("src/repro_torch/kernels/csrc/local_attn_tc.cu",
                    "src/repro/kernels/local_attn/local_attn.py:90"),
 }
-BF16_TC_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+# each wrapper's own CUDA kernels, as torch.profiler names them
+KERNEL_SYMBOLS = {
+    "fedavg_agg": ("fedavg_agg_kernel",),
+    "lstm_cell": ("lstm_cell_kernel",),
+    "ewc_update": ("ewc_partial_kernel", "ewc_finish_kernel"),
+    "dp_clip_noise": ("dp_sumsq_kernel", "dp_finish_kernel",
+                      "dp_apply_kernel"),
+    "ssd_chunk": ("ssd_chunk_kernel",),
+    "local_attn": ("local_attn_tc_kernel", "local_attn_kernel"),
+}
 
 # the LLM path: batched scoring (build_eval_step) and greedy serving
 # (ServeEngine) at the full width and depth of each config, weights random
@@ -147,6 +162,10 @@ KERNEL_RTOL = 2e-5      # f32 kernel vs plain at path shapes, x max(1, |plain|)
 # KERNEL_RTOL * max|f64| of the f64 scan (the plain oracle's own scan
 # rounds in another order)
 SSD_F64_FACTOR = 2.0
+# local_attn's tensor-core route (bf16) is held the same way: its output at
+# most ATTN_F64_FACTOR times as far from the f64 answer as the plain
+# version's bf16 output
+ATTN_F64_FACTOR = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -182,9 +201,35 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def device_ms(name, fn, iters: int = 50, warmup: int = 3) -> float | None:
+    """The device time of one call's own kernels (``KERNEL_SYMBOLS[name]``),
+    from torch.profiler's device events over ``iters`` calls; None (and a
+    line saying so) when the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    own = [e for e in events if any(sym in e.name
+                                    for sym in KERNEL_SYMBOLS[name])]
+    if not own:
+        print(f"[kernels] {name}: the profiler recorded no device time of "
+              f"{KERNEL_SYMBOLS[name]} ({len(events)} device events)")
+        return None
+    return sum(e.time_range.elapsed_us() for e in own) / iters / 1e3
+
+
+def bound(nbytes: float, flops: float,
+          flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -231,6 +276,8 @@ def check_fedavg(dev, gen):
     bms, by = bound(nbytes, flops)
     return {"max_abs_err": err, "shape": f"N=2, T={t}",
             "ms": cuda_ms(lambda: ops.aggregate_flat(x, ws)),
+            "device_ms": device_ms("fedavg_agg",
+                                   lambda: ops.aggregate_flat(x, ws)),
             "plain_ms": cuda_ms(lambda: agg_ref(x, ws)),
             "library_ms": cuda_ms(lambda: torch.matmul(w_row, x)),
             "bound_ms": bms, "bound_by": by}
@@ -292,6 +339,8 @@ def check_lstm(dev, gen):
     bms, by = bound(nbytes, flops)
     return {"max_abs_err": err, "shape": f"B={b}, I={i}, H={hid}",
             "ms": cuda_ms(lambda: ops.lstm_step(x, h, c, wx, wh, bias)),
+            "device_ms": device_ms(
+                "lstm_cell", lambda: ops.lstm_step(x, h, c, wx, wh, bias)),
             "plain_ms": cuda_ms(lambda: lstm_cell_ref(x, h, c, wx, wh, bias)),
             "library_ms": cuda_ms(
                 lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
@@ -317,6 +366,8 @@ def check_ewc(dev, gen):
     bms, by = bound(nbytes, flops)
     return {"max_abs_err": err, "shape": f"T={t}, F=None",
             "ms": cuda_ms(lambda: ops.ewc_penalty_grad_flat(lam, g, p, a)),
+            "device_ms": device_ms(
+                "ewc_update", lambda: ops.ewc_penalty_grad_flat(lam, g, p, a)),
             "plain_ms": cuda_ms(lambda: ewc_ref(lam, g, p, a)),
             "library_ms": None, "bound_ms": bms, "bound_by": by}
 
@@ -348,6 +399,9 @@ def check_dp(dev, gen):
     bms, by = bound(12 * t, 5 * t)
     return {"max_abs_err": err, "shape": f"T={t}, clip 5.0, m 0.3",
             "ms": cuda_ms(lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
+            "device_ms": device_ms(
+                "dp_clip_noise",
+                lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
             "plain_ms": cuda_ms(lambda: dp_clip_noise_ref(d, noise, 5.0, 0.3)),
             "library_ms": None, "bound_ms": bms, "bound_by": by}
 
@@ -476,6 +530,9 @@ def check_ssd(dev, gen):
     return {"max_abs_err": err, "shape": f"b={nb}, c={nc}, l={l}, h={h}, "
                                          f"p={p}, n={n} (S={s})",
             "ms": cuda_ms(lambda: ops.ssd_intra_chunk(*path), iters=50),
+            "device_ms": device_ms("ssd_chunk",
+                                   lambda: ops.ssd_intra_chunk(*path),
+                                   iters=20),
             "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(*path), iters=10,
                                 warmup=2),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
@@ -502,8 +559,12 @@ def check_local_attn(dev, gen):
                                   (8, s, 0, torch.float32),
                                   (16, 4096, 2048, torch.float32)):
         q, k, v = qkv(1 if window else b, h, 1, seq, d, dtype)
+        tc_before = ops.launches_tc
         got = ops.local_flash_attention(q, k, v, causal=True, window=window,
                                         scale=scale)
+        tc = ops.launches_tc - tc_before
+        require(tc == (dtype == torch.bfloat16), f"local_attn {dtype}: "
+                f"{tc} tensor-core launches")
         want = local_attention_ref(q, k, v, causal=True, window=window,
                                    scale=scale)
         e, lim = rel_err(got, want)
@@ -511,10 +572,26 @@ def check_local_attn(dev, gen):
             lim = 2e-2
         require(e <= lim, f"local_attn H={h} S={seq} window={window} "
                           f"{dtype}: max abs err {e} > {lim}")
-        print(f"[kernels] local_attn H={h} S={seq} window={window} {dtype}: "
-              f"max abs err {e:.3e} (limit {lim:.3e})")
+        print(f"[kernels] local_attn H={h} S={seq} window={window} {dtype} "
+              f"({ops.route(dtype, d)} route): max abs err {e:.3e} (limit "
+              f"{lim:.3e})")
         err = max(err, e)
+        if dtype == torch.bfloat16:
+            # the tensor-core route against the same function in f64
+            exact = local_attention_ref(q.double(), k.double(), v.double(),
+                                        causal=True, window=window,
+                                        scale=scale)
+            dk, dp = f64_distance(got, exact), f64_distance(want, exact)
+            print(f"[kernels] local_attn bf16 H={h} S={seq}: distance to "
+                  f"f64 (x max|f64|) kernel {dk:.3e}, plain bf16 {dp:.3e} "
+                  f"(limit x{ATTN_F64_FACTOR})")
+            require(dk <= ATTN_F64_FACTOR * dp, f"local_attn bf16: the "
+                    f"kernel is {dk} from f64, its plain version {dp}")
+            del exact
     q, k, v = qkv(b, 8, 1, s, d, torch.bfloat16)
+    # the same inputs as the model hands them over: (b, s, heads, D) views
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -523,20 +600,32 @@ def check_local_attn(dev, gen):
         q, k, v, causal=True, scale=scale).float()).abs().max().item()
     require(lib_err <= 2e-2, f"the SDPA yardstick computes another function "
                              f"({lib_err})")
+    require(torch.equal(ops.local_flash_attention(*views, causal=True,
+                                                  scale=scale),
+                        ops.local_flash_attention(q, k, v, causal=True,
+                                                  scale=scale)),
+            "local_attn: strided views give another answer")
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     pairs = b * 8 * s * (s + 1) // 2            # the causal half
     flops = pairs * 4 * d
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+
+    def kernel(*args):
+        return lambda: ops.local_flash_attention(*args, causal=True,
+                                                 scale=scale)
     return {"max_abs_err": err, "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, "
                                          "causal, bf16",
-            "ms": cuda_ms(lambda: ops.local_flash_attention(
-                q, k, v, causal=True, scale=scale), iters=20, warmup=3),
+            "ms": cuda_ms(kernel(q, k, v), iters=20, warmup=3),
+            "device_ms": device_ms("local_attn", kernel(q, k, v), iters=20),
+            "views_ms": cuda_ms(kernel(*views), iters=20, warmup=3),
+            "f32_ms": cuda_ms(kernel(q32, k32, v32), iters=10, warmup=2),
             "plain_ms": cuda_ms(lambda: local_attention_ref(
                 q, k, v, causal=True, window=0, scale=scale), iters=10,
                 warmup=2),
             "library_ms": cuda_ms(library, iters=20, warmup=3),
             "bound_ms": bms, "bound_by": by,
-            "bf16_tensor_core_ms": flops / BF16_TC_FLOP_PER_S * 1e3,
+            "f32_bound_ms": bound(2 * nbytes, flops)[0],
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
 
 
@@ -552,8 +641,9 @@ def phase_kernels(dev) -> dict:
         res = check(dev, gen)
         torch.cuda.synchronize()
         print(f"[kernels] {name} ({res['shape']}): max_abs_err "
-              f"{res['max_abs_err']:.3e}, kernel {res['ms']:.4f} ms, plain "
-              f"{res['plain_ms']:.4f} ms, library {res['library_ms']} ms, "
+              f"{res['max_abs_err']:.3e}, kernel {res['ms']:.5f} ms back to "
+              f"back, {res['device_ms']} ms its own device time, plain "
+              f"{res['plain_ms']:.5f} ms, library {res['library_ms']} ms, "
               f"bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
         results[name] = res
     return results
@@ -776,6 +866,7 @@ def score(dev, arch) -> dict:
     import torch
     from repro_torch.data.lm_synth import lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.local_attn import ops as attn_ops
     from repro_torch.training.train_step import build_eval_step
 
     t0 = time.perf_counter()
@@ -789,23 +880,30 @@ def score(dev, arch) -> dict:
     eval_step = build_eval_step(model, cfg)
     want = {name: 0 for name in launch_counts()}
     want[LLM_KERNEL[arch]] = cfg.n_layers
+    # every local_attn launch of bf16 scoring on the tensor-core route
+    want_tc = cfg.n_layers if LLM_KERNEL[arch] == "local_attn" else 0
     first = None
     for run in ("cold", "warm"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        attn_ops.launches_tc = 0
         t0 = time.perf_counter()
         out = eval_step(params, batch)
         loss = out["loss"].item()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        tc = attn_ops.launches_tc
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"[llm] score {arch} batch {b} x {seq} ({run}): loss {loss:.6f} "
               f"(ln V = {math.log(cfg.vocab_size):.6f}), {wall * 1e3:.1f} ms "
               f"wall, {b * seq / wall:.0f} tokens/s, peak memory {peak:.2f} "
-              f"GiB, launches {json.dumps(counts)}")
+              f"GiB, launches {json.dumps(counts)}, local_attn on the "
+              f"tensor cores {tc}")
         require(counts == want, f"{arch} scoring launched {counts}, expected "
                                 f"{want}")
+        require(tc == want_tc, f"{arch} scoring: {tc} local_attn launches on "
+                               f"the tensor-core route, expected {want_tc}")
         require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size))
                 < 2.0, f"{arch} loss {loss} is not within 2 of ln V")
         first = first or counts
@@ -1124,12 +1222,14 @@ def main() -> int:
                 "launches_by_path": {p: c[name] for p, c in counts.items()},
                 "max_abs_err": results[name]["max_abs_err"],
                 "ms": results[name]["ms"],
+                "device_ms": results[name]["device_ms"],
                 "plain_ms": results[name]["plain_ms"],
                 "bound_ms": results[name]["bound_ms"],
                 "bound_by": results[name]["bound_by"],
                 "library_ms": results[name]["library_ms"],
                 **{k: results[name][k] for k in
-                   ("shape", "bf16_tensor_core_ms", "group_bound_ms")
+                   ("shape", "f32_ms", "views_ms", "f32_bound_ms",
+                    "group_bound_ms")
                    if k in results[name]}}
                for name, (src, replaces) in KERNEL_META.items()]
     print(f"[done] {time.perf_counter() - t0:.1f} s in all")

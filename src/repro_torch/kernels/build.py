@@ -38,6 +38,8 @@ SIGNATURES = {
     "ssd_chunk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "local_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                           _I, _I, _P],
+    "local_attn_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             *[_L] * 12, _F, _I, _I, _P],
 }
 
 _lib = None

@@ -5,7 +5,8 @@
 //   (causal: k_pos <= q_pos) and (window: k_pos > q_pos - window);
 //   out = softmax(score) @ v, by an online softmax over key tiles.
 // S and T are multiples of the tiles (the wrapper pads them); t_real is the
-// unpadded T.
+// unpadded T.  This kernel takes every f32 call and bf16 at D 16 or 32;
+// bf16 at D 64, 128 or 256 runs on the tensor cores (local_attn_tc.cu).
 //
 // Replaces the Pallas kernel src/repro/kernels/local_attn/local_attn.py
 // (flash_tiled -> _flash_kernel).
@@ -13,8 +14,9 @@
 // Bound on the H100: f32 operations on the CUDA cores.  At gemma-2b (H 8,
 // KV 1, D 256), B 2 and S 2048 the causal half is about 34.4 GFLOP against
 // about 38 MB moved: 0.51 ms at 67 TFLOP/s.  In bf16 on the tensor cores
-// the floor would be 0.035 ms; this kernel computes in f32, as the
-// reference does, and uses no tensor cores.
+// the floor would be 0.035 ms (local_attn_tc.cu takes those calls); this
+// kernel computes in f32, as the reference does, and uses no tensor cores,
+// which keeps f32 inputs within 2e-5 of the plain version.
 //
 // Design: on the TPU the key axis is the innermost, sequential grid axis
 // and the softmax carry (m, l, acc) lives in VMEM across it.  Here one
@@ -188,7 +190,7 @@ static int la_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be 16, 32, 64 or 256.
+// dtype: 0 = float32, 1 = bfloat16.  D must be 16, 32, 64, 128 or 256.
 extern "C" int local_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int KV, int S, int Tk,
                                  int t_real, int D, float scale, int causal,
@@ -211,6 +213,7 @@ extern "C" int local_attn_launch(const void* q, const void* k, const void* v,
     LA_CASE(16)
     LA_CASE(32)
     LA_CASE(64)
+    LA_CASE(128)
     LA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,9 +1,19 @@
-"""Public wrapper of the windowed flash attention: CUDA tensors launch
-``csrc/local_attn.cu``, CPU tensors run ``ref.local_attention_ref``.
+"""Public wrapper of the windowed flash attention: CUDA tensors launch one
+of two kernels, CPU tensors run ``ref.local_attention_ref``.
 
-As the reference's ``local_flash_attention``, the wrapper pads S and T to
-the kernel's tiles and passes the unpadded T as ``t_real``; the kernel
-masks the padded keys and the wrapper drops the padded rows.
+``route`` picks the kernel from the dtype and head_dim alone:
+
+- ``"tc"``: bf16 at D 64, 128 or 256 runs ``csrc/local_attn_tc.cu`` on the
+  tensor cores.  It reads q, k, v and writes the output by their strides
+  (last dimension contiguous), and TMA fills rows past S or T with zeros,
+  so nothing is padded or copied; the output takes q's layout.
+- ``"cuda_core"``: every f32 call, and bf16 at D 16 or 32, runs
+  ``csrc/local_attn.cu`` in f32 on the CUDA cores.  As the reference's
+  ``local_flash_attention``, the wrapper pads S and T to its tiles and
+  passes the unpadded T as ``t_real``; the kernel masks the padded keys and
+  the wrapper drops the padded rows.
+
+``launches`` counts every launch; ``launches_tc`` the tensor-core route's.
 """
 
 from __future__ import annotations
@@ -16,15 +26,64 @@ from repro_torch.kernels.local_attn.ref import local_attention_ref
 
 BLK_Q = 32                      # LA_BQ in csrc/local_attn.cu
 BLK_K = 32                      # LA_BK
-HEAD_DIMS = (16, 32, 64, 256)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+TC_HEAD_DIMS = (64, 128, 256)        # local_attn_tc.cu's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
+launches_tc = 0
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` (bf16 on the tensor cores) or
+    ``"cuda_core"`` (f32 inside, on the CUDA cores)."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "cuda_core"
+
+
+def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """(batch, head, row) strides of a (B, H, S, D) tensor as the
+    tensor-core kernel takes them, or None when TMA cannot read it in place
+    (last dimension not contiguous, a stride or the address not a multiple
+    of 16 bytes).  A dimension of size 1 is never stepped over, so its
+    stride is given as D."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    out = tuple(st if n > 1 else t.shape[-1]
+                for n, st in zip(t.shape[:3], t.stride()[:3], strict=True))
+    return out if all(st > 0 and st % 8 == 0 for st in out) else None
+
+
+def _launch_tc(q, k, v, causal, window, scale):
+    global launches, launches_tc
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    strides = []
+    ins = []
+    for t in (q, k, v):
+        st = tma_strides(t)
+        if st is None:                  # a view TMA cannot step through
+            t = t.clone(memory_format=torch.contiguous_format)
+            st = tma_strides(t)
+        ins.append(t)
+        strides.extend(st)
+    q, k, v = ins
+    out = torch.empty_like(q)           # q's layout when q is dense
+    strides.extend(tma_strides(out))
+    status = build.library().local_attn_tc_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
+        S, T, D, *strides, float(scale), int(bool(causal)), int(window),
+        build.stream_handle(q.device))
+    build.check(status, "local_attn")
+    launches += 1
+    launches_tc += 1
+    return out
 
 
 def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: float = 1.0):
     """q: (B, H, S, D); k/v: (B, KV, T, D), f32 or bf16 -> (B, H, S, D) in
-    q's dtype.  Arbitrary S/T (padded here)."""
+    q's dtype.  Arbitrary S/T."""
     if not build.on_cuda("local_attn", q, k, v):
         return local_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
@@ -52,6 +111,8 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return q.new_empty(out_shape)
     if T == 0:
         raise ValueError("local_attn: no keys (T = 0)")
+    if route(q.dtype, D) == "tc":
+        return _launch_tc(q, k, v, causal, window, scale)
     pad_q, pad_k = (-S) % BLK_Q, (-T) % BLK_K
     qp = F.pad(q, (0, 0, 0, pad_q)) if pad_q else q
     kp = F.pad(k, (0, 0, 0, pad_k)) if pad_k else k

@@ -16,8 +16,13 @@ D 256, S 2048; RecurrentGemma's window 2048 at S 4096; mamba2-370m: l 256,
 h 32, p 64, n 128 over 2048 tokens) the f32 bound is relative,
 max|kernel - plain| <= 2e-5 * max(1, max|plain|), since there sums run
 over up to 2048 keys or 256 x 128 products in another order; bf16 stays
-at 2e-2.  The SSD at mamba2-370m's shapes is also held against the same
-function evaluated in f64: there dA_cum reaches ~200 in magnitude, where
+at 2e-2.  bf16 at D 64, 128 and 256 takes the tensor-core route
+(``local_attn_tc.cu``; ``ops.launches_tc`` counts it): besides 2e-2
+against the plain version, its output may sit at most twice as far from
+the same function evaluated in f64 (the plain version on f64 copies of
+the bf16 inputs) as the plain version's bf16 output does, and it reads
+transposed views in place.  The SSD at mamba2-370m's shapes is also
+held against the same function evaluated in f64: there dA_cum reaches ~200 in magnitude, where
 an f32 ulp is 1.5e-5, so the order of the in-chunk scan shows.  The
 kernel may sit at most twice as far from the f64 answer as its plain
 version, and the whole chunked scan within 2e-5 * max|f64| of the f64
@@ -39,6 +44,7 @@ from repro_torch.kernels.ewc_update.ref import ewc_ref
 from repro_torch.kernels.fedavg_agg.ops import aggregate_flat
 from repro_torch.kernels.fedavg_agg.ref import agg_ref
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_step
+from repro_torch.kernels.local_attn import ops as attn_ops
 from repro_torch.kernels.local_attn.ops import local_flash_attention
 from repro_torch.kernels.local_attn.ref import local_attention_ref
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
@@ -54,6 +60,7 @@ from repro_torch.utils.tree import tree_map
 pytestmark = pytest.mark.cuda
 T = 141_953
 SSD_F64_FACTOR = 2.0    # kernel's distance to f64 over the plain version's
+ATTN_F64_FACTOR = 2.0   # the same for the tensor-core route of local_attn
 
 
 @pytest.fixture
@@ -223,7 +230,7 @@ def test_local_attn_kernel_matches_plain_on_the_sweep(H, KV, S, causal,
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_local_attn_kernel_takes_every_head_dim(D, cuda):
     gen = torch.Generator(device=cuda).manual_seed(D)
     q, k, v = attn_case(gen, 1, 2, 1, 80, D, torch.float32)
@@ -232,6 +239,75 @@ def test_local_attn_kernel_takes_every_head_dim(D, cuda):
     want = local_attention_ref(q, k, v, causal=True, window=24,
                                scale=D ** -0.5)
     torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+
+
+def attn_f64_check(q, k, v, out, **kw):
+    """The tensor-core route's distance to f64 against the plain version's
+    bf16 output's (module docstring)."""
+    exact = local_attention_ref(q.double(), k.double(), v.double(), **kw)
+    plain = local_attention_ref(q, k, v, **kw)
+    d_tc, d_plain = f64_distance(out, exact), f64_distance(plain, exact)
+    assert d_tc <= ATTN_F64_FACTOR * d_plain, (d_tc, d_plain)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("H,KV,S,causal,window,D", [
+    (4, 2, 64, True, 0, 64),
+    (4, 1, 96, True, 32, 128),
+    (2, 2, 64, False, 0, 64),
+    (8, 4, 128, True, 64, 256),
+    (4, 2, 50, True, 0, 128),        # S, T not multiples of the tiles
+    (2, 1, 200, True, 20, 256),      # a window narrower than a key tile
+    (2, 2, 130, False, 40, 64),      # a window without the causal mask
+])
+def test_local_attn_tc_route_matches_plain_on_the_sweep(H, KV, S, causal,
+                                                        window, D, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(S * 10 + H + D)
+    q, k, v = attn_case(gen, 2, H, KV, S, D, torch.bfloat16)
+    before, before_tc = attn_ops.launches, attn_ops.launches_tc
+    out = local_flash_attention(q, k, v, causal=causal, window=window,
+                                scale=D ** -0.5)
+    assert (attn_ops.launches, attn_ops.launches_tc) == (before + 1,
+                                                         before_tc + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    attn_f64_check(q, k, v, out, causal=causal, window=window,
+                   scale=D ** -0.5)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_local_attn_tc_route_is_as_close_to_f64_as_plain(D, cuda):
+    """gemma-2b's scoring shape (B 2, H 8, KV 1, S 2048) at each head_dim
+    the route takes."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = attn_case(gen, 2, 8, 1, 2048, D, torch.bfloat16)
+    before_tc = attn_ops.launches_tc
+    out = local_flash_attention(q, k, v, causal=True, scale=D ** -0.5)
+    assert attn_ops.launches_tc == before_tc + 1
+    attn_f64_check(q, k, v, out, causal=True, window=0, scale=D ** -0.5)
+
+
+@pytest.mark.parametrize("S", [2048, 200])
+def test_local_attn_tc_route_reads_strided_views_in_place(S, cuda):
+    """q, k, v as the model hands them over: (b, s, heads, D) transposed
+    to (b, heads, s, D).  The output takes q's layout, so the model's
+    transpose back is free, and equals the contiguous copies' output."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (randn(gen, 2, S, n, 256).to(torch.bfloat16) for n in (8, 1, 1))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    out = local_flash_attention(*views, causal=True, scale=0.0625)
+    assert out.stride() == views[0].stride()
+    assert out.transpose(1, 2).is_contiguous()
+    want = local_flash_attention(*(t.contiguous() for t in views),
+                                 causal=True, scale=0.0625)
+    assert torch.equal(out, want)
+
+
+def test_local_attn_f32_stays_on_the_cuda_cores(cuda):
+    q = torch.zeros(1, 2, 64, 128, device=cuda)
+    before, before_tc = attn_ops.launches, attn_ops.launches_tc
+    local_flash_attention(q, q, q, scale=0.1)
+    assert (attn_ops.launches, attn_ops.launches_tc) == (before + 1,
+                                                         before_tc)
 
 
 def test_local_attn_kernel_refuses_other_head_dims(cuda):
