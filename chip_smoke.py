@@ -15,19 +15,32 @@ Phases, each fatal on failure (non-zero exit, no final line):
              route, also against the same function in f64) and f32, and at
              RecurrentGemma's window 2048, S 4096); the LSTM step's
              autograd.Function gradients against autograd of the plain
-             cell; times of kernel (back to back, and its own device time
-             from torch.profiler), plain version and library call.
+             cell; the whole-sequence LSTM kernels (forward and reverse
+             scan) at the main path's shapes (B 8: T 672 with I 10, T 96
+             with I 9; also B 1, 7, 26) against their plain versions, the
+             forward against the chained step kernel bit for bit, the
+             backward run twice bit for bit, and ``LSTMSeqFn``'s gradients
+             against an f64 evaluation; the fold by leaves against the
+             stacked fold bit for bit, one launch up to 64 trees; times of
+             kernel (back to back, and its own device time from
+             torch.profiler), plain version and library call (cuDNN's
+             ``torch.lstm`` for the sequence, forward and forward +
+             backward), and the sequence's serial floor.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
-             read after: every kernel of the path must have launched, and
-             Table II must be finite and inside the system test's bounds.
+             read after: every kernel of the path must have launched, the
+             LSTM only on the sequence route (two forward scans per
+             forecaster forward, two reverse scans per SGD step, no step
+             kernel), and Table II must be finite and inside the system
+             test's bounds.
 4. profile — one anchored SGD step at the main path's width: host time with
              and without the backward, device kernels by name and the
              device's idle share (``torch.profiler``).
 5. privacy — the same run with DP clipping and noise and pairwise-mask
              secure aggregation (the committed report's privacy settings),
              counters reset before and read after: one ``dp_clip_noise``
-             launch per update, one fold per secure round, every client's
+             launch per update, one fold per secure round, the LSTM's
+             launches as on the main path, every client's
              epsilon equal to the closed form, the non-federated Table II
              columns inside the bounds.
 6. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
@@ -81,21 +94,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12     # dense bf16 on the tensor cores
 
-# examples/solar_forecasting.py's default run at the full SolarLSTMConfig
-# width, with epochs cut from 3 to 1 (see MAIN_PATH_CUT)
-MAIN_PATH = dict(hidden=128, n_sites=6, n_days=40, rounds=2, epochs=1,
+# examples/solar_forecasting.py's default run (3 epochs) at the full
+# SolarLSTMConfig width; the privacy path adds the committed
+# artifacts/solar_report.json's privacy settings (PRIVACY)
+MAIN_PATH = dict(hidden=128, n_sites=6, n_days=40, rounds=2, epochs=3,
                  n_independent=2, seed=0)
-MAIN_PATH_CUT = ("epochs cut 3 -> 1: the run is host-bound (511 s at 3 "
-                 "epochs, 252-348 s at 2 on an H100), and it shares the "
-                 "smoke's 1200 s with the privacy path and the LLM path; "
-                 "hidden stays 128")
-# the committed artifacts/solar_report.json's privacy settings at the full
-# width, with epochs cut from 3 to 1 (see PRIVACY_PATH_CUT)
-PRIVACY_PATH = dict(MAIN_PATH, epochs=1)
-PRIVACY_PATH_CUT = ("epochs cut 3 -> 1: at 2 the privacy path took 306-459 "
-                    "s on an H100, at 1 it took 156 s, and the smoke now "
-                    "also runs the LLM path inside its 1200 s; hidden stays "
-                    "128")
 PRIVACY = dict(dp_clip=5.0, dp_noise_multiplier=0.3, secure_agg=True)
 # DP without secure aggregation leaves each update's noise (std m * clip per
 # weight) unaveraged; at clip 5 the federated models are chaotic: the CPU
@@ -114,7 +117,9 @@ SOLAR_PARAMS = 141_953  # parameters of the forecaster at hidden 128
 KERNEL_META = {
     "fedavg_agg": ("src/repro_torch/kernels/csrc/fedavg_agg.cu",
                    "src/repro/kernels/fedavg_agg/fedavg_agg.py:34"),
-    "lstm_cell": ("src/repro_torch/kernels/csrc/lstm_cell.cu",
+    # the solar paths run the whole-sequence kernels; lstm_cell.cu is the
+    # single-step API (its numbers are the step_* keys)
+    "lstm_cell": ("src/repro_torch/kernels/csrc/lstm_seq.cu",
                   "src/repro/kernels/lstm_cell/lstm_cell.py:43"),
     "ewc_update": ("src/repro_torch/kernels/csrc/ewc_update.cu",
                    "src/repro/kernels/ewc_update/ewc_update.py:39"),
@@ -129,8 +134,9 @@ KERNEL_META = {
 }
 # each wrapper's own CUDA kernels, as torch.profiler names them
 KERNEL_SYMBOLS = {
-    "fedavg_agg": ("fedavg_agg_kernel",),
-    "lstm_cell": ("lstm_cell_kernel",),
+    "fedavg_agg": ("fedavg_agg_kernel", "fedavg_agg_leaves_kernel"),
+    "lstm_cell": ("lstm_cell_kernel", "lstm_seq_fwd_kernel",
+                  "lstm_seq_bwd_kernel"),
     "ewc_update": ("ewc_partial_kernel", "ewc_finish_kernel"),
     "dp_clip_noise": ("dp_sumsq_kernel", "dp_finish_kernel",
                       "dp_apply_kernel"),
@@ -201,12 +207,16 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(name, fn, iters: int = 50, warmup: int = 3) -> float | None:
-    """The device time of one call's own kernels (``KERNEL_SYMBOLS[name]``),
-    from torch.profiler's device events over ``iters`` calls; None (and a
-    line saying so) when the profiler records no device time."""
+def device_ms(name, fn, iters: int = 50, warmup: int = 3,
+              symbols=None) -> float | None:
+    """The device time of one call's own kernels (``symbols``, by default
+    ``KERNEL_SYMBOLS[name]``), from torch.profiler's device events over
+    ``iters`` calls; None (and a line saying so) when the profiler records
+    no device time."""
     import torch
     from torch.autograd import DeviceType
+
+    symbols = symbols or KERNEL_SYMBOLS[name]
 
     for _ in range(warmup):
         fn()
@@ -217,11 +227,10 @@ def device_ms(name, fn, iters: int = 50, warmup: int = 3) -> float | None:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    own = [e for e in events if any(sym in e.name
-                                    for sym in KERNEL_SYMBOLS[name])]
+    own = [e for e in events if any(sym in e.name for sym in symbols)]
     if not own:
         print(f"[kernels] {name}: the profiler recorded no device time of "
-              f"{KERNEL_SYMBOLS[name]} ({len(events)} device events)")
+              f"{symbols} ({len(events)} device events)")
         return None
     return sum(e.time_range.elapsed_us() for e in own) / iters / 1e3
 
@@ -277,7 +286,8 @@ def check_fedavg(dev, gen):
     return {"max_abs_err": err, "shape": f"N=2, T={t}",
             "ms": cuda_ms(lambda: ops.aggregate_flat(x, ws)),
             "device_ms": device_ms("fedavg_agg",
-                                   lambda: ops.aggregate_flat(x, ws)),
+                                   lambda: ops.aggregate_flat(x, ws),
+                                   symbols=("fedavg_agg_kernel",)),
             "plain_ms": cuda_ms(lambda: agg_ref(x, ws)),
             "library_ms": cuda_ms(lambda: torch.matmul(w_row, x)),
             "bound_ms": bms, "bound_by": by}
@@ -340,11 +350,275 @@ def check_lstm(dev, gen):
     return {"max_abs_err": err, "shape": f"B={b}, I={i}, H={hid}",
             "ms": cuda_ms(lambda: ops.lstm_step(x, h, c, wx, wh, bias)),
             "device_ms": device_ms(
-                "lstm_cell", lambda: ops.lstm_step(x, h, c, wx, wh, bias)),
+                "lstm_cell", lambda: ops.lstm_step(x, h, c, wx, wh, bias),
+                symbols=("lstm_cell_kernel",)),
             "plain_ms": cuda_ms(lambda: lstm_cell_ref(x, h, c, wx, wh, bias)),
             "library_ms": cuda_ms(
                 lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b_ih, b_hh)),
             "bound_ms": bms, "bound_by": by}
+
+
+def check_fedavg_leaves(dev, gen):
+    """The fold by leaves, as ``aggregate_pytrees`` runs it on the solar
+    paths: forecaster trees at hidden 128 (8 leaves, 141,953 parameters)."""
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.kernels.fedavg_agg import ops
+    from repro_torch.kernels.fedavg_agg.ref import agg_leaves_ref
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.utils.tree import (
+        flatten_params,
+        tree_leaves,
+        unflatten_params,
+    )
+
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=MAIN_PATH["hidden"]))
+
+    def trees(n):
+        return [fc.init(gen, dev) for _ in range(n)]
+    err = 0.0
+    for n in (2, 3, 8, 64, 70, 128):
+        ts = trees(n)
+        w = torch.rand(n, generator=gen, device=dev)
+        ws = (w / w.sum()).tolist()
+        before = ops.launches_leaves
+        got = flatten_params(ops.aggregate_pytrees(ts, ws))
+        want = 1 + max(0, -(-(n - ops.MAX_N) // (ops.MAX_N - 1)))
+        require(ops.launches_leaves - before == want, f"fedavg_agg by "
+                f"leaves at N={n}: {ops.launches_leaves - before} launches, "
+                f"expected {want}")
+        stacked = torch.stack([flatten_params(t) for t in ts])
+        require(torch.equal(got, ops.aggregate_flat(stacked, ws)),
+                f"fedavg_agg by leaves at N={n} differs from the stacked "
+                "fold")
+        err = max(err, (got - agg_leaves_ref([tree_leaves(t) for t in ts],
+                                              ws)).abs().max().item())
+        del ts, stacked
+    require(err <= 1e-6, f"fedavg_agg by leaves: max abs err {err} > 1e-6")
+    print("[kernels] fedavg_agg by leaves at N 2, 3, 8, 64, 70, 128: equal "
+          "to the stacked fold bit for bit; one launch up to 64 trees")
+    ts = trees(2)
+    ws = [0.375, 0.625]
+    w_row = torch.tensor([ws], device=dev)
+    t = SOLAR_PARAMS
+    stacked = torch.stack([flatten_params(x) for x in ts])
+    bms, by = bound((2 * t + t) * 4, 2 * 2 * t)
+    return {"max_abs_err": err, "shape": f"N=2 trees, T={t}, 8 leaves",
+            "ms": cuda_ms(lambda: ops.aggregate_pytrees(ts, ws)),
+            "device_ms": device_ms(
+                "fedavg_agg", lambda: ops.aggregate_pytrees(ts, ws),
+                symbols=("fedavg_agg_leaves_kernel",)),
+            "plain_ms": cuda_ms(lambda: agg_leaves_ref(
+                [tree_leaves(x) for x in ts], ws)),
+            # the library route from the same trees: flatten, stack, GEMV
+            "library_ms": cuda_ms(lambda: w_row @ torch.stack(
+                [flatten_params(x) for x in ts])),
+            "stacked_library_ms": cuda_ms(lambda: w_row @ stacked),
+            # PR 14's aggregate_pytrees: flatten, stack, fold, unflatten
+            "stacked_trees_ms": cuda_ms(lambda: unflatten_params(
+                ops.aggregate_flat(torch.stack(
+                    [flatten_params(x) for x in ts]), ws), ts[0])),
+            "bound_ms": bms, "bound_by": by}
+
+
+def seq_inputs(dev, gen, b, i, t, h):
+    import torch
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    return (r(t, b, i), r(b, h, scale=0.5), r(b, h, scale=0.5),
+            r(i, 4 * h, scale=0.1), r(h, 4 * h, scale=0.1),
+            r(4 * h, scale=0.1))
+
+
+def cudnn_lstm(args):
+    """``torch.nn.LSTM`` (cuDNN) holding the same weights: w_ih = Wxᵀ,
+    w_hh = Whᵀ, the reference's +1 on the forget quarter of b_ih.  Returns
+    (module, call) with call() -> (ys, hT, cT)."""
+    import torch
+
+    xs, h0, c0, wx, wh, b = args
+    hid = h0.shape[1]
+    lstm = torch.nn.LSTM(wx.shape[0], hid).to(xs.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.T)
+        lstm.weight_hh_l0.copy_(wh.T)
+        b_ih = b.clone()
+        b_ih[hid:2 * hid] += 1.0
+        lstm.bias_ih_l0.copy_(b_ih)
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+
+    def call():
+        ys, (h, c) = lstm(xs, (h0[None], c0[None]))
+        return ys, h[0], c[0]
+    return lstm, call
+
+
+def seq_bounds(t, b, i, h) -> dict:
+    """Least times of the sequence forward and backward (bytes: each input
+    read once, each output written once; operations: the gate products, f32
+    on the CUDA cores)."""
+    fwd_bytes = 4 * (t * b * i + 2 * b * h + (i + h) * 4 * h + 4 * h
+                     + 2 * t * b * h + t * b * 4 * h + 2 * b * h)
+    fwd_flops = 2 * t * b * (i + h) * 4 * h
+    bwd_bytes = 4 * (t * b * h + 2 * b * h + t * b * 4 * h + t * b * h
+                     + b * h + h * 4 * h + t * b * 4 * h + 2 * b * h)
+    bwd_flops = 2 * t * b * 4 * h * h
+    return {"fwd": bound(fwd_bytes, fwd_flops),
+            "bwd": bound(bwd_bytes, bwd_flops)}
+
+
+def serial_floor_ms(t, i, h) -> tuple[float, float]:
+    """(floor, per-step exchange) of a T-step scan at input I, width H:
+    T x (one step's exchange of h, wait and gate arithmetic, measured as
+    the time a step takes in a scan whose products are nearly empty: B 1,
+    I 1, H 32 on the same cluster size as H (its chain is 33 FMAs long);
+    plus the rest of the step's chain of I + H dependent FMAs at 4 cycles
+    each and the card's top SM clock)."""
+    import torch
+    from repro_torch.kernels.lstm_cell import ops
+
+    require(ops.seq_cluster(32, 1) == ops.seq_cluster(h, i),
+            "the serial floor's probe runs on another cluster size")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tiny = seq_inputs("cuda", gen, 1, 1, t, 32)
+    per_step = cuda_ms(lambda: ops.lstm_seq_fwd(*tiny, save=False),
+                       iters=20) / t
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    chain_ms = (i + h - 33) * 4 / clock_hz * 1e3
+    return t * (per_step + chain_ms), per_step
+
+
+def check_lstm_seq(dev, gen):
+    import torch
+    from repro_torch.kernels.lstm_cell import ops
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_bwd_ref, lstm_seq_ref
+
+    hid = 128
+    err = 0.0
+    for b in (1, 7, 8, 26):
+        for i, t in ((10, 672), (9, 96)):       # encoder, decoder
+            args = seq_inputs(dev, gen, b, i, t, hid)
+            fwd = ops.lstm_seq_fwd(*args)
+            for what, got, want in zip(("ys", "c", "gates", "hT", "cT"), fwd,
+                                       lstm_seq_ref(*args), strict=True):
+                e, lim = rel_err(got, want)
+                require(e <= lim, f"lstm_seq forward B={b} T={t} {what}: "
+                                  f"max abs err {e} > {lim}")
+                err = max(err, e)
+            h, c = args[1], args[2]
+            for step in range(t):               # the chained step kernel
+                h, c = ops.lstm_step(args[0][step], h, c, *args[3:])
+                require(torch.equal(fwd[0][step], h), f"lstm_seq forward "
+                        f"B={b} T={t}: step {step} differs from the step "
+                        "kernel")
+            require(torch.equal(fwd[3], h) and torch.equal(fwd[4], c),
+                    f"lstm_seq forward B={b} T={t}: final state differs")
+            # the decoder's ys reach the loss, the encoder's do not
+            dys = (torch.randn(t, b, hid, generator=gen, device=dev)
+                   if i == 9 else None)
+            dh, dc = (torch.randn(b, hid, generator=gen, device=dev)
+                      for _ in range(2))
+            bargs = (dys, dh, dc, fwd[2], fwd[1], args[2], args[4])
+            got = ops.lstm_seq_bwd(*bargs)
+            for what, g, w in zip(("da", "dh0", "dc0"), got,
+                                  lstm_seq_bwd_ref(*bargs), strict=True):
+                e, lim = rel_err(g, w)
+                require(e <= lim, f"lstm_seq backward B={b} T={t} {what}: "
+                                  f"max abs err {e} > {lim}")
+                err = max(err, e)
+            require(all(torch.equal(x, y) for x, y in
+                        zip(got, ops.lstm_seq_bwd(*bargs), strict=True)),
+                    f"lstm_seq backward B={b} T={t}: two runs differ")
+    print(f"[kernels] lstm_seq at B 1, 7, 8, 26 (T 672 I 10, T 96 I 9, H "
+          f"128): forward and backward within {KERNEL_RTOL} x max(1, "
+          f"|plain|) of their plain versions (max abs err {err:.3e}); the "
+          "forward equal to the chained step kernel bit for bit; two "
+          "backward runs equal bit for bit")
+
+    # LSTMSeqFn's gradients against the same function in f64
+    b, i, t = 8, 10, 672
+    args = [a.requires_grad_() for a in seq_inputs(dev, gen, b, i, t, hid)]
+    wy, wh_, wc_ = (torch.randn(*s, generator=gen, device=dev)
+                    for s in ((t, b, hid), (b, hid), (b, hid)))
+
+    def loss(ys, h, c):
+        return (ys * wy).sum() + (h * wh_).sum() + (c * wc_).sum()
+    gk = torch.autograd.grad(loss(*ops.LSTMSeqFn.apply(*args)), args)
+    ys, _, _, h, c = lstm_seq_ref(*args)
+    gr = torch.autograd.grad(loss(ys, h, c), args)
+    a64 = [a.detach().double().requires_grad_() for a in args]
+    ys, _, _, h, c = lstm_seq_ref(*a64)
+    ge = torch.autograd.grad(loss(ys, h, c), a64)
+    # the whole gradient against f64 as the whole SSD scan is held: within
+    # KERNEL_RTOL x max|f64| (two f32 orders of the weight gradients' 5,376
+    # products differ by more than a fixed atol)
+    for name, k, p, e in zip(("xs", "h0", "c0", "wx", "wh", "b"), gk, gr, ge,
+                             strict=True):
+        dk, dp = f64_distance(k, e), f64_distance(p, e)
+        print(f"[kernels] LSTMSeqFn d{name} (B 8, T 672): distance to f64 "
+              f"(x max|f64|) kernels {dk:.3e}, plain f32 autograd {dp:.3e} "
+              f"(limit {KERNEL_RTOL})")
+        require(dk <= KERNEL_RTOL, f"LSTMSeqFn d{name}: {dk} x max|f64| "
+                                   "from f64")
+
+    # times at the main path's shapes
+    enc = [a.detach() for a in args]
+    dec = seq_inputs(dev, gen, b, 9, 96, hid)
+    fwd = ops.lstm_seq_fwd(*enc)
+    dh, dc = (torch.randn(b, hid, generator=gen, device=dev)
+              for _ in range(2))
+    bargs = (None, dh, dc, fwd[2], fwd[1], enc[2], enc[4])
+    _, cudnn = cudnn_lstm(enc)
+    lib = cudnn()
+    lib_err = max((x - y).abs().max().item()
+                  for x, y in zip(lib, (fwd[0], fwd[3], fwd[4]), strict=True))
+    require(lib_err <= 1e-4, f"the cuDNN yardstick computes another "
+                             f"function ({lib_err})")
+    live = [a.detach().requires_grad_() for a in enc]
+
+    def kernel_fwd_bwd():
+        ys, h, c = ops.LSTMSeqFn.apply(*live)
+        torch.autograd.grad(loss(ys, h, c), live)
+
+    mod, call = cudnn_lstm(live)
+
+    def cudnn_fwd_bwd():
+        ys, h, c = call()
+        torch.autograd.grad(loss(ys, h, c), [*live[:3], *mod.parameters()])
+    bounds = seq_bounds(t, b, i, hid)
+    floor, per_step = serial_floor_ms(t, i, hid)
+    print(f"[kernels] lstm_seq serial floor at T {t}: {floor:.5f} ms ({t} x "
+          f"({per_step * 1e3:.4f} us a step measured at B 1, I 1, H 32 + "
+          f"{i + hid - 33} more FMAs of the {i + hid}-FMA chain)); card: "
+          f"{card_line()}")
+    dec_ms = cuda_ms(lambda: ops.lstm_seq_fwd(*dec), iters=50)
+    return {"max_abs_err": err, "shape": f"B={b}, T={t}, I={i}, H={hid} "
+                                         "(forward, saving for the backward)",
+            "ms": cuda_ms(lambda: ops.lstm_seq_fwd(*enc), iters=50),
+            "device_ms": device_ms("lstm_cell",
+                                   lambda: ops.lstm_seq_fwd(*enc), iters=20,
+                                   symbols=("lstm_seq_fwd_kernel",)),
+            "plain_ms": cuda_ms(lambda: lstm_seq_ref(*enc), iters=3,
+                                warmup=1),
+            "library_ms": cuda_ms(cudnn, iters=20, warmup=3),
+            "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
+            "serial_floor_ms": floor, "step_exchange_us": per_step * 1e3,
+            "decoder_ms": dec_ms,
+            "bwd_ms": cuda_ms(lambda: ops.lstm_seq_bwd(*bargs), iters=50),
+            "bwd_device_ms": device_ms("lstm_cell",
+                                       lambda: ops.lstm_seq_bwd(*bargs),
+                                       iters=20,
+                                       symbols=("lstm_seq_bwd_kernel",)),
+            "bwd_plain_ms": cuda_ms(lambda: lstm_seq_bwd_ref(*bargs),
+                                    iters=3, warmup=1),
+            "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1],
+            "fwd_bwd_ms": cuda_ms(kernel_fwd_bwd, iters=20, warmup=3),
+            "fwd_bwd_library_ms": cuda_ms(cudnn_fwd_bwd, iters=20, warmup=3)}
 
 
 def check_ewc(dev, gen):
@@ -634,10 +908,14 @@ def phase_kernels(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for name, check in (("fedavg_agg", check_fedavg), ("lstm_cell", check_lstm),
-                        ("ewc_update", check_ewc), ("dp_clip_noise", check_dp),
-                        ("ssd_chunk", check_ssd),
-                        ("local_attn", check_local_attn)):
+    # the paths' routes first; the stacked fold and the single step stand
+    # beside them as stacked_* and step_* keys
+    for name, check, extra in (
+            ("fedavg_agg", check_fedavg_leaves, ("stacked", check_fedavg)),
+            ("lstm_cell", check_lstm_seq, ("step", check_lstm)),
+            ("ewc_update", check_ewc, None), ("dp_clip_noise", check_dp, None),
+            ("ssd_chunk", check_ssd, None),
+            ("local_attn", check_local_attn, None)):
         res = check(dev, gen)
         torch.cuda.synchronize()
         print(f"[kernels] {name} ({res['shape']}): max_abs_err "
@@ -645,7 +923,25 @@ def phase_kernels(dev) -> dict:
               f"back, {res['device_ms']} ms its own device time, plain "
               f"{res['plain_ms']:.5f} ms, library {res['library_ms']} ms, "
               f"bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+        if extra:
+            tag, second = extra
+            more = second(dev, gen)
+            torch.cuda.synchronize()
+            print(f"[kernels] {name}, {tag} route ({more['shape']}): "
+                  f"max_abs_err {more['max_abs_err']:.3e}, kernel "
+                  f"{more['ms']:.5f} ms back to back, {more['device_ms']} ms "
+                  f"its own device time, plain {more['plain_ms']:.5f} ms, "
+                  f"library {more['library_ms']} ms, bound "
+                  f"{more['bound_ms']:.6f} ms ({more['bound_by']})")
+            res.update({f"{tag}_{k}": v for k, v in more.items()
+                        if k not in ("bound_by",)})
+            res["max_abs_err"] = max(res["max_abs_err"], more["max_abs_err"])
         results[name] = res
+    extras = {k: v for k, v in results["lstm_cell"].items()
+              if k.startswith(("bwd", "fwd_bwd", "decoder", "serial",
+                               "step_exchange"))}
+    print(f"[kernels] lstm_seq at B 8, T 672, I 10, H 128: {json.dumps(extras)}"
+          f"; card: {card_line()}")
     return results
 
 
@@ -679,18 +975,60 @@ def print_report(report, tag="main"):
 
 def counted_run(dev, cfg):
     """``run_fedccl_solar(**cfg)`` on ``dev`` with the launch counters set
-    to 0 just before and read just after; returns (report, counts, wall)."""
+    to 0 just before and read just after; returns (report, counts, routes,
+    wall).  ``routes`` holds the route counters (sequence forwards and
+    reverse scans, folds by leaves) and the path's own calls: forecaster
+    forwards and SGD steps (``solar_loss`` calls, each one backward)."""
     import torch
+    import repro_torch.training.fed_solar as fed_solar
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.training.fed_solar import run_fedccl_solar
+    from repro_torch.kernels.fedavg_agg import ops as agg_ops
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models.lstm import SolarForecaster
 
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    report = run_fedccl_solar(device=dev, **cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return report, launch_counts(), wall
+    calls = {"forwards": 0, "sgd_steps": 0}
+    forward, loss = SolarForecaster.forward, fed_solar.solar_loss
+
+    def counted_forward(self, *a, **kw):
+        calls["forwards"] += 1
+        return forward(self, *a, **kw)
+
+    def counted_loss(*a, **kw):
+        calls["sgd_steps"] += 1
+        return loss(*a, **kw)
+    SolarForecaster.forward, fed_solar.solar_loss = counted_forward, \
+        counted_loss
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = fed_solar.run_fedccl_solar(device=dev, **cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        SolarForecaster.forward, fed_solar.solar_loss = forward, loss
+    routes = {"lstm_seq_fwd": lstm_ops.launches_seq_fwd,
+              "lstm_seq_bwd": lstm_ops.launches_seq_bwd,
+              "fedavg_agg_leaves": agg_ops.launches_leaves, **calls}
+    return report, launch_counts(), routes, wall
+
+
+def require_sequence_route(counts, routes, what):
+    """The LSTM ran only as sequence scans: two forwards per forecaster
+    forward (encoder, decoder), two reverse scans per SGD step, no step
+    kernel; every fold by leaves."""
+    steps = counts["lstm_cell"] - routes["lstm_seq_fwd"] - \
+        routes["lstm_seq_bwd"]
+    require(steps == 0, f"{what}: {steps} lstm_cell step launches")
+    require(routes["forwards"] > 0 and routes["lstm_seq_fwd"]
+            == 2 * routes["forwards"], f"{what}: {routes['lstm_seq_fwd']} "
+            f"sequence forwards for {routes['forwards']} forecaster forwards")
+    require(routes["sgd_steps"] > 0 and routes["lstm_seq_bwd"]
+            == 2 * routes["sgd_steps"], f"{what}: {routes['lstm_seq_bwd']} "
+            f"reverse scans for {routes['sgd_steps']} SGD steps")
+    require(counts["fedavg_agg"] == routes["fedavg_agg_leaves"],
+            f"{what}: {counts['fedavg_agg']} folds, "
+            f"{routes['fedavg_agg_leaves']} by leaves")
 
 
 MAIN_KERNELS = ("fedavg_agg", "lstm_cell", "ewc_update")
@@ -698,16 +1036,18 @@ PRIVACY_KERNELS = MAIN_KERNELS + ("dp_clip_noise",)
 
 
 def phase_main(dev) -> dict:
-    report, counts, wall = counted_run(dev, MAIN_PATH)
-    print(f"[main] {MAIN_PATH_CUT}")
-    print(f"[main] run_fedccl_solar({MAIN_PATH}) on {dev}: {wall:.1f} s")
+    report, counts, routes, wall = counted_run(dev, MAIN_PATH)
+    print(f"[main] run_fedccl_solar({MAIN_PATH}) on {dev}: {wall:.1f} s; "
+          f"card: {card_line()}")
     print_report(report)
-    print(f"[main] launches {json.dumps(counts)}")
+    print(f"[main] launches {json.dumps(counts)}; routes and calls "
+          f"{json.dumps(routes)}")
     for name in MAIN_KERNELS:
         require(counts[name] > 0, f"kernel {name} never launched on the "
                                   "main path")
+    require_sequence_route(counts, routes, "main path")
     check_table(report, "main path")
-    return counts
+    return counts, routes
 
 
 # ------------------------------------------------------------------ phase 4
@@ -784,6 +1124,7 @@ def phase_profile(dev):
           f"{step_ms:.2f} ms on the host clock; forward alone {fwd_ms:.2f} ms")
 
     device_profile("profile", lambda: sgd_step(params, batch, anchor), top=12)
+    print(f"[profile] card: {card_line()}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -797,16 +1138,17 @@ def closed_form_epsilon(steps: int, sigma: float, delta: float) -> float:
 
 
 def phase_privacy(dev) -> dict:
-    cfg = dict(PRIVACY_PATH, **PRIVACY)
-    report, counts, wall = counted_run(dev, cfg)
-    print(f"[privacy] {PRIVACY_PATH_CUT}")
+    cfg = dict(MAIN_PATH, **PRIVACY)
+    report, counts, routes, wall = counted_run(dev, cfg)
     print(f"[privacy] run_fedccl_solar({cfg}) on {dev}: {wall:.1f} s")
     print(f"[privacy] card: {card_line()}")
     print_report(report, "privacy")
-    print(f"[privacy] launches {json.dumps(counts)}")
+    print(f"[privacy] launches {json.dumps(counts)}; routes and calls "
+          f"{json.dumps(routes)}")
     for name in PRIVACY_KERNELS:
         require(counts[name] > 0, f"kernel {name} never launched on the "
                                   "privacy path")
+    require_sequence_route(counts, routes, "privacy path")
     stats = report["async_stats"]
     require(stats["secure_rounds"] > 0, "no secure round folded")
     require(stats["secure_recoveries"] == 0,
@@ -838,7 +1180,7 @@ def phase_privacy(dev) -> dict:
         require(row["mean_error_energy"] < 40.0,
                 f"privacy path: {name} energy error "
                 f"{row['mean_error_energy']}")
-    return counts
+    return counts, routes
 
 
 # ------------------------------------------------------------------ phase 6
@@ -887,7 +1229,6 @@ def score(dev, arch) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        attn_ops.launches_tc = 0
         t0 = time.perf_counter()
         out = eval_step(params, batch)
         loss = out["loss"].item()
@@ -1206,9 +1547,10 @@ def main() -> int:
     try:
         phase_build()
         results = phase_kernels(dev)
-        counts = {"main": phase_main(dev)}
+        counts, routes = {}, {}
+        counts["main"], routes["main"] = phase_main(dev)
         phase_profile(dev)
-        counts["privacy"] = phase_privacy(dev)
+        counts["privacy"], routes["privacy"] = phase_privacy(dev)
         counts["llm"] = phase_llm(dev)
         phase_agree(dev)
         phase_llm_agree(dev)
@@ -1216,21 +1558,19 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     # launches: each path's run, counters set to 0 just before it
+    main_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+    route_keys = {"lstm_cell": ("lstm_seq_fwd", "lstm_seq_bwd"),
+                  "fedavg_agg": ("fedavg_agg_leaves",)}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": sum(c[name] for c in counts.values()),
                 "launches_by_path": {p: c[name] for p, c in counts.items()},
-                "max_abs_err": results[name]["max_abs_err"],
-                "ms": results[name]["ms"],
-                "device_ms": results[name]["device_ms"],
-                "plain_ms": results[name]["plain_ms"],
-                "bound_ms": results[name]["bound_ms"],
-                "bound_by": results[name]["bound_by"],
-                "library_ms": results[name]["library_ms"],
-                **{k: results[name][k] for k in
-                   ("shape", "f32_ms", "views_ms", "f32_bound_ms",
-                    "group_bound_ms")
-                   if k in results[name]}}
+                **{f"launches_{r}": {p: rt[r] for p, rt in routes.items()}
+                   for r in route_keys.get(name, ())},
+                **{k: results[name][k] for k in main_keys},
+                **{k: v for k, v in results[name].items()
+                   if k not in main_keys}}
                for name, (src, replaces) in KERNEL_META.items()]
     print(f"[done] {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Each kernel package has two modules:
   ops.py — the public wrapper: it checks its tensors, launches the CUDA
            kernel (``csrc/<name>.cu``) for CUDA tensors and counts the
-           launch in its ``launches`` integer, and runs the plain version
-           for CPU tensors
+           launch in its ``launches`` integer (and, where the wrapper has
+           several routes, in the route's own ``launches_<route>``), and
+           runs the plain version for CPU tensors
   ref.py — the plain PyTorch version the kernel is checked against
 
 The device decides the route; there is no switch and no fallback.  The
@@ -27,5 +28,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Set every counter of every kernel to 0: ``launches`` and the route
+    counters beside it (``launches_tc``, ``launches_seq_fwd``, ...)."""
     for name in KERNELS:
-        _ops(name).launches = 0
+        mod = _ops(name)
+        for attr in [a for a in vars(mod) if a.startswith("launches")]:
+            setattr(mod, attr, 0)

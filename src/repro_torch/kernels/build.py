@@ -40,6 +40,10 @@ SIGNATURES = {
                           _I, _I, _P],
     "local_attn_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              *[_L] * 12, _F, _I, _I, _P],
+    "lstm_seq_fwd_launch": [*[_P] * 6, *[_I] * 6, *[_P] * 5, _P],
+    "lstm_seq_bwd_launch": [*[_P] * 7, *[_I] * 5, *[_P] * 3, _P],
+    "fedavg_agg_leaves_launch": [_P, _P],
+    "fedavg_leaf_fold_size": [],
 }
 
 _lib = None
@@ -69,8 +73,9 @@ def sources() -> list[Path]:
 
 
 def _digest(srcs) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -16,6 +16,22 @@
 // the wrapper folds more sets in ordered chunks, each chunk behind the
 // running sum at weight 1.0 (fedavg_agg/ops.py fold_chunks).  A zero weight (the _pad_pow2 padding) adds an
 // exact 0.0f, so padded folds give the unpadded result.
+//
+// fedavg_agg_leaves_kernel folds the N parameter trees where their leaves
+// lie, with no flatten and no stack: a LeafFold table passed by value
+// (__grid_constant__, read in place from the parameter space) holds the N x L
+// leaf pointers in JAX leaf order, the L leaf lengths and output pointers
+// and the N weights.  The 1-D grid runs over (leaf, column block): block b
+// belongs to the leaf l with block_start[l] <= b < block_start[l + 1].  Each
+// thread adds w_i * x_i[j] for i = 0..N-1 in that order with the same FMAs
+// as fedavg_agg_kernel, so the two routes agree bit for bit.  The table
+// holds up to FOLD_MAX_PTRS pointers (64 sets of 16 leaves; the forecaster
+// has 8) and FOLD_MAX_LEAVES leaves, 8.8 KB: Hopper takes up to 32,764
+// bytes of kernel parameters from CUDA 12.1 on.  The wrapper chunks larger
+// folds
+// (fedavg_agg/ops.py pack_leaf_folds), sets as fold_chunks does and leaves in
+// groups, and a later chunk reads its running sum from the output in place
+// (each element is read and written by the same thread).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,6 +39,8 @@
 #define FEDAVG_MAX_N 64
 #define FEDAVG_THREADS 256
 #define FEDAVG_MAX_BLOCKS 4096
+#define FOLD_MAX_PTRS 1024
+#define FOLD_MAX_LEAVES 16
 
 struct FoldWeights {
   float w[FEDAVG_MAX_N];
@@ -54,5 +72,49 @@ extern "C" int fedavg_agg_launch(const float* x, const float* weights, int n,
   if (blocks > FEDAVG_MAX_BLOCKS) blocks = FEDAVG_MAX_BLOCKS;
   fedavg_agg_kernel<<<(unsigned)blocks, FEDAVG_THREADS, 0,
                       (cudaStream_t)stream>>>(x, w, n, (int64_t)t, out);
+  return (int)cudaGetLastError();
+}
+
+struct LeafFold {
+  const float* x[FOLD_MAX_PTRS];   // x[i * n_leaves + l]: set i's leaf l
+  float* out[FOLD_MAX_LEAVES];
+  long long len[FOLD_MAX_LEAVES];
+  long long block_start[FOLD_MAX_LEAVES + 1];   // filled by the launcher
+  float w[FEDAVG_MAX_N];
+  int n, n_leaves;
+};
+
+__global__ void fedavg_agg_leaves_kernel(const __grid_constant__ LeafFold f) {
+  const long long blk = blockIdx.x;
+  int l = 0;
+  while (l + 1 < f.n_leaves && blk >= f.block_start[l + 1]) ++l;
+  const long long j = (blk - f.block_start[l]) * FEDAVG_THREADS + threadIdx.x;
+  if (j >= f.len[l]) return;
+  float acc = 0.0f;
+  for (int i = 0; i < f.n; ++i) {
+    acc = fmaf(f.w[i], f.x[i * f.n_leaves + l][j], acc);
+  }
+  f.out[l][j] = acc;
+}
+
+extern "C" int fedavg_leaf_fold_size(void) { return (int)sizeof(LeafFold); }
+
+extern "C" int fedavg_agg_leaves_launch(LeafFold* f, void* stream) {
+  if (f->n < 1 || f->n > FEDAVG_MAX_N || f->n_leaves < 1 ||
+      f->n_leaves > FOLD_MAX_LEAVES ||
+      f->n * f->n_leaves > FOLD_MAX_PTRS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  long long blocks = 0;
+  for (int l = 0; l < f->n_leaves; ++l) {
+    if (f->len[l] < 0) return (int)cudaErrorInvalidValue;
+    f->block_start[l] = blocks;
+    blocks += (f->len[l] + FEDAVG_THREADS - 1) / FEDAVG_THREADS;
+  }
+  f->block_start[f->n_leaves] = blocks;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fedavg_agg_leaves_kernel<<<(unsigned)blocks, FEDAVG_THREADS, 0,
+                             (cudaStream_t)stream>>>(*f);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,10 @@
 // Bound on the H100: bytes, and in practice launch latency.  A step reads
 // Wx (I x 4H) and Wh (H x 4H) once: 276 KB at I = 10, H = 128, against
 // 2 * B * (I + H) * 4H = 1.1 MFLOP at B = 8, i.e. about 0.08 us of HBM time.
-// A forward pass launches the step 672 + 96 times, so the launch overhead,
-// not the step, sets the pace.  A kernel that runs the whole scan in one
-// launch is the follow-up.
+// A forward pass would launch the step 672 + 96 times, so the launch
+// overhead, not the step, would set the pace: the forecaster's scan runs
+// the whole-sequence kernels of lstm_seq.cu instead, and this kernel stays
+// the single-step API (ops.lstm_step, LSTMCellFn).
 //
 // Design: grid (ceil(H / LSTM_COLS), B).  A block serves one batch row and
 // LSTM_COLS hidden columns; it stages x[b, :] and h[b, :] in shared memory.
@@ -21,16 +22,15 @@
 // warp reads 32 adjacent floats of each weight row (coalesced).  The gates
 // stay in registers; only h' and c' are written.  Rows after the first
 // reread the weights from L2.  Any B works (no padding to a tile); no tensor
-// cores and no TF32, so the result is plain f32 arithmetic.
+// cores and no TF32, so the result is plain f32 arithmetic.  The gate
+// arithmetic is lstm_common.cuh's, shared with lstm_seq.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define LSTM_COLS 32
+#include "lstm_common.cuh"
 
-__device__ __forceinline__ float sigmoidf_(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
+#define LSTM_COLS 32
 
 __global__ void lstm_cell_kernel(const float* __restrict__ x,
                                  const float* __restrict__ h,
@@ -74,13 +74,11 @@ __global__ void lstm_cell_kernel(const float* __restrict__ x,
     ag = fmaf(v, w[2 * hidden], ag);
     ao = fmaf(v, w[3 * hidden], ao);
   }
-  const float ig = sigmoidf_(ai + b[j]);
-  const float fg = sigmoidf_(af + b[j + hidden] + 1.0f);
-  const float gg = tanhf(ag + b[j + 2 * hidden]);
-  const float og = sigmoidf_(ao + b[j + 3 * hidden]);
-  const float cn = fg * c[row * hidden + j] + ig * gg;
-  c_out[row * hidden + j] = cn;
-  h_out[row * hidden + j] = og * tanhf(cn);
+  const LstmAct a = lstm_apply(ai, af, ag, ao, b[j], b[j + hidden],
+                               b[j + 2 * hidden], b[j + 3 * hidden],
+                               c[row * hidden + j]);
+  c_out[row * hidden + j] = a.c;
+  h_out[row * hidden + j] = a.h;
 }
 
 extern "C" int lstm_cell_launch(const float* x, const float* h, const float* c,

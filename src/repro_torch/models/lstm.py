@@ -1,9 +1,10 @@
 """Case-study forecaster (paper §III): LSTM encoder over 7-day history +
 
 forecast-conditioned LSTM decoder emitting 96 quarter-hour power predictions.
-Every step goes through the fused cell ``kernels.lstm_cell`` (the CUDA
-kernel on CUDA tensors, its plain version on CPU tensors).  Parameters are a
-plain dict with the JAX package's keys; ``forward`` takes that dict.
+Each scan is one ``kernels.lstm_cell.LSTMSeqFn``: on CUDA tensors one launch
+of the whole-sequence kernel forward and one of its reverse scan backward;
+on CPU tensors their plain versions.  Parameters are a plain dict with the
+JAX package's keys; ``forward`` takes that dict.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.solar_lstm import SolarLSTMConfig
-from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+from repro_torch.kernels.lstm_cell.ops import LSTMSeqFn
 from repro_torch.sharding.logical import ParamSpec, init_from_schema
 from repro_torch.utils.device import resolve_device
 
@@ -27,12 +28,9 @@ def lstm_cell_schema(in_dim: int, hidden: int) -> dict:
 
 def lstm_scan(p, xs, h0, c0):
     """xs: (b, t, in) -> outputs (b, t, hidden), (hT, cT)."""
-    h, c = h0, c0
-    ys = []
-    for x in xs.transpose(0, 1).contiguous():      # (t, b, in): rows contiguous
-        h, c = lstm_cell_fused(p, x, h, c)
-        ys.append(h)
-    return torch.stack(ys, dim=1), (h, c)
+    ys, h, c = LSTMSeqFn.apply(xs.transpose(0, 1).contiguous(),   # (t, b, in)
+                               h0, c0, p["wx"], p["wh"], p["b"])
+    return ys.transpose(0, 1), (h, c)
 
 
 class SolarForecaster:

@@ -10,9 +10,9 @@ centralized baselines, and produces a Table-II-shaped report:
 
 plus the §IV.E population-independent evaluation on held-out sites.
 
-On CUDA every LSTM step, every server fold, every anchored SGD update and
-every DP release runs through the port's hand-written kernels
-(``repro_torch.kernels``).
+On CUDA every LSTM scan (one launch forward, one backward), every server
+fold, every anchored SGD update and every DP release runs through the
+port's hand-written kernels (``repro_torch.kernels``).
 """
 
 from __future__ import annotations

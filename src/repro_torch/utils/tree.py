@@ -38,21 +38,18 @@ def flatten_params(tree) -> torch.Tensor:
 def unflatten_params(flat: torch.Tensor, template):
     """Inverse of ``flatten_params``: leaves are views of ``flat`` cast to the
     template's dtypes, in the template's key order."""
-    need = sum(x.numel() for x in tree_leaves(template))
-    if need != flat.numel():
+    sizes = [x.numel() for x in tree_leaves(template)]
+    if sum(sizes) != flat.numel():
         raise ValueError(f"flat vector has {flat.numel()} elements, the "
-                         f"template needs {need}")
-    off = 0
+                         f"template needs {sum(sizes)}")
+    views = iter(flat.split(sizes))        # one call for every leaf's slice
 
     def go(node):
-        nonlocal off
         if isinstance(node, dict):
             built = {k: go(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
-        n = node.numel()
-        leaf = flat[off:off + n].view(node.shape).to(node.dtype)
-        off += n
-        return leaf
+        leaf = next(views).view(node.shape)
+        return leaf if leaf.dtype == node.dtype else leaf.to(node.dtype)
 
     return go(template)
 

@@ -29,6 +29,16 @@ version, and the whole chunked scan within 2e-5 * max|f64| of the f64
 scan (the plain oracle ``ssd_chunked`` takes its cumsum in another
 order).  The reduced models' forward on the card matches the CPU
 forward at atol 5e-5.
+
+The whole-sequence LSTM kernels (``csrc/lstm_seq.cu``): the forward equals
+the chained step kernel bit for bit, and forward and backward sit within
+2e-5 * max(1, max|plain|) of their plain versions (138-term sums in another
+order than cuBLAS's, carried through up to 672 recurrent steps); the
+reverse scan gives the same bits on every run (fixed-order sums, no
+atomics); ``LSTMSeqFn``'s gradients sit within 2e-5 * max|f64| of the
+gradient evaluated in f64, and at T 40 match autograd of the plain loop at
+rtol 1e-4 / atol 1e-5.  The fold by leaves equals the stacked fold bit for
+bit (the same FMAs in the same order), one launch for up to 64 trees.
 """
 
 import pytest
@@ -43,7 +53,18 @@ from repro_torch.kernels.ewc_update.ops import ewc_penalty_grad_flat
 from repro_torch.kernels.ewc_update.ref import ewc_ref
 from repro_torch.kernels.fedavg_agg.ops import aggregate_flat
 from repro_torch.kernels.fedavg_agg.ref import agg_ref
-from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_step
+from repro_torch.kernels.fedavg_agg import ops as agg_ops
+from repro_torch.kernels.fedavg_agg.ops import aggregate_pytrees
+from repro_torch.kernels.fedavg_agg.ref import agg_leaves_ref
+from repro_torch.kernels.lstm_cell import ops as lstm_ops
+from repro_torch.kernels.lstm_cell.ops import (
+    LSTMCellFn,
+    LSTMSeqFn,
+    lstm_seq_bwd,
+    lstm_seq_fwd,
+    lstm_step,
+)
+from repro_torch.kernels.lstm_cell.ref import lstm_seq_bwd_ref, lstm_seq_ref
 from repro_torch.kernels.local_attn import ops as attn_ops
 from repro_torch.kernels.local_attn.ops import local_flash_attention
 from repro_torch.kernels.local_attn.ref import local_attention_ref
@@ -55,12 +76,14 @@ from repro_torch.models.model import build_model
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models.lstm import SolarForecaster
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
-from repro_torch.utils.tree import tree_map
+from repro_torch.training.losses import solar_loss
+from repro_torch.utils.tree import flatten_params, tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 T = 141_953
 SSD_F64_FACTOR = 2.0    # kernel's distance to f64 over the plain version's
 ATTN_F64_FACTOR = 2.0   # the same for the tensor-core route of local_attn
+SEQ_GRAD_F64_RTOL = 2e-5   # sequence LSTM gradients vs f64, x max|f64|
 
 
 @pytest.fixture
@@ -178,7 +201,8 @@ def test_ewc_kernel_matches_plain(with_fisher, cuda):
 
 
 def test_forecaster_on_card_matches_cpu(cuda):
-    """768 kernel steps against 768 plain steps, same weights and inputs."""
+    """The 672 + 96 steps as two sequence launches (encoder, decoder)
+    against the plain loop, same weights and inputs."""
     fc = SolarForecaster(SolarLSTMConfig(hidden_size=32))
     params = fc.init(torch.Generator().manual_seed(0), "cpu")
     gen = torch.Generator().manual_seed(1)
@@ -189,10 +213,153 @@ def test_forecaster_on_card_matches_cpu(cuda):
     reset_launch_counts()
     got = fc.forward(tree_map(lambda x: x.to(cuda), params), hist.to(cuda),
                      fcst.to(cuda))
-    assert launch_counts()["lstm_cell"] == (fc.cfg.history_steps
-                                            + fc.cfg.horizon_steps)
+    assert launch_counts()["lstm_cell"] == 2
+    assert lstm_ops.launches_seq_fwd == 2 and lstm_ops.launches_seq_bwd == 0
     torch.testing.assert_close(got.cpu(), fc.forward(params, hist, fcst),
                                rtol=0, atol=1e-5)
+
+
+def test_forecaster_gradient_on_card_matches_cpu(cuda):
+    """One solar_loss gradient: two sequence forwards and two reverse scans
+    on the card against the plain versions on the CPU."""
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=32))
+    params = fc.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(2)
+    batch = {"history": torch.rand(5, fc.cfg.history_steps,
+                                   fc.cfg.history_channels, generator=gen),
+             "forecast": torch.rand(5, fc.cfg.horizon_steps,
+                                    fc.cfg.forecast_channels, generator=gen),
+             "target": torch.rand(5, fc.cfg.horizon_steps, generator=gen)}
+
+    def grads(dev):
+        live = tree_map(lambda x: x.to(dev).requires_grad_(), params)
+        loss, _ = solar_loss(fc, live, {k: v.to(dev)
+                                        for k, v in batch.items()})
+        return torch.autograd.grad(loss, tree_leaves(live))
+    reset_launch_counts()
+    got = grads(cuda)
+    assert lstm_ops.launches_seq_fwd == 2 and lstm_ops.launches_seq_bwd == 2
+    assert launch_counts()["lstm_cell"] == 4
+    for a, b in zip(got, grads("cpu"), strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- the sequence kernels
+def seq_args(gen, b, i, t, h=128):
+    return (randn(gen, t, b, i), randn(gen, b, h, scale=0.5),
+            randn(gen, b, h, scale=0.5), randn(gen, i, 4 * h, scale=0.1),
+            randn(gen, h, 4 * h, scale=0.1), randn(gen, 4 * h, scale=0.1))
+
+
+# the main path's shapes (B 8: encoder T 672 with I 10, decoder T 96 with
+# I 9), other batches (two clusters at 26 and 33) and widths
+SEQ_SHAPES = [(8, 10, 672, 128), (8, 9, 96, 128), (1, 10, 96, 128),
+              (7, 9, 37, 128), (26, 10, 37, 128), (33, 9, 5, 128),
+              (5, 10, 96, 32), (3, 9, 37, 16), (2, 9, 11, 4)]
+
+
+@pytest.mark.parametrize("B,I,T,H", SEQ_SHAPES)
+def test_lstm_seq_forward_matches_plain_and_the_step_kernel(B, I, T, H,
+                                                            cuda):
+    gen = torch.Generator(device=cuda).manual_seed(B * 1000 + T)
+    xs, h0, c0, wx, wh, b = seq_args(gen, B, I, T, H)
+    before = lstm_ops.launches_seq_fwd
+    ys, cseq, gates, h, c = lstm_seq_fwd(xs, h0, c0, wx, wh, b)
+    assert lstm_ops.launches_seq_fwd == before + 1
+    want = lstm_seq_ref(xs, h0, c0, wx, wh, b)
+    for what, got, ref in zip(("ys", "c seq", "gates", "hT", "cT"),
+                              (ys, cseq, gates, h, c), want, strict=True):
+        full_close(got, ref, f"lstm_seq forward {what}")
+    hh, cc = h0, c0
+    for t in range(T):                  # the chained step kernel
+        hh, cc = lstm_step(xs[t], hh, cc, wx, wh, b)
+        assert torch.equal(ys[t], hh), f"step {t} differs"
+    assert torch.equal(h, hh) and torch.equal(c, cc)
+    # without the saved tensors: the same outputs
+    ys2, cs2, g2, h2, c2 = lstm_seq_fwd(xs, h0, c0, wx, wh, b, save=False)
+    assert cs2 is None and g2 is None
+    assert torch.equal(ys2, ys) and torch.equal(h2, h) and torch.equal(c2, c)
+
+
+@pytest.mark.parametrize("with_dys", [True, False])
+@pytest.mark.parametrize("B,I,T,H", SEQ_SHAPES)
+def test_lstm_seq_backward_matches_plain(B, I, T, H, with_dys, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(B * 1000 + T + 7)
+    xs, h0, c0, wx, wh, b = seq_args(gen, B, I, T, H)
+    _, cseq, gates, _, _ = lstm_seq_fwd(xs, h0, c0, wx, wh, b)
+    dys = randn(gen, T, B, H) if with_dys else None
+    dh, dc = randn(gen, B, H), randn(gen, B, H)
+    before = lstm_ops.launches_seq_bwd
+    got = lstm_seq_bwd(dys, dh, dc, gates, cseq, c0, wh)
+    assert lstm_ops.launches_seq_bwd == before + 1
+    want = lstm_seq_bwd_ref(dys, dh, dc, gates, cseq, c0, wh)
+    for what, g, r in zip(("da", "dh0", "dc0"), got, want, strict=True):
+        full_close(g, r, f"lstm_seq backward {what}")
+    again = lstm_seq_bwd(dys, dh, dc, gates, cseq, c0, wh)
+    for g, r in zip(got, again, strict=True):     # fixed-order sums
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("B,I,T", [(8, 10, 672), (3, 9, 40)])
+def test_lstm_seq_fn_gradients_match_autograd_of_plain_loop(B, I, T, cuda):
+    """Against autograd of the plain loop in f32 and in f64.  Every gradient
+    of the kernels sits within SEQ_GRAD_F64_RTOL * max|f64| of the f64
+    gradient (as the whole SSD scan is held).  At T 40 they also agree with
+    the plain f32 gradients at rtol 1e-4 / atol 1e-5; at T 672 the weight
+    gradients sum 5,376 products, whose f32 rounding in two orders differs
+    by more than that atol, so the f64 answer is the referee."""
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    args = [a.requires_grad_() for a in seq_args(gen, B, I, T)]
+    wy, wh_, wc_ = (randn(gen, T, B, 128), randn(gen, B, 128),
+                    randn(gen, B, 128))
+
+    def loss(ys, h, c):
+        return (ys * wy).sum() + (h * wh_).sum() + (c * wc_).sum()
+    gk = torch.autograd.grad(loss(*LSTMSeqFn.apply(*args)), args)
+    ys, _, _, h, c = lstm_seq_ref(*args)
+    gr = torch.autograd.grad(loss(ys, h, c), args)
+    args64 = [a.detach().double().requires_grad_() for a in args]
+    ys, _, _, h, c = lstm_seq_ref(*args64)
+    ge = torch.autograd.grad(loss(ys, h, c), args64)
+    for a, b, e in zip(gk, gr, ge, strict=True):
+        dk = (a.double() - e).abs().max().item()
+        assert dk <= SEQ_GRAD_F64_RTOL * e.abs().max().item(), dk
+        if T <= 40:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------ fold by leaves
+def forecaster_trees(n, seed):
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=128))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [fc.init(gen, "cuda") for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 64, 70, 128])
+def test_fold_by_leaves_equals_the_stacked_fold(n, cuda):
+    trees = forecaster_trees(n, n)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    ws = torch.rand(n, generator=gen, device=cuda)
+    ws = (ws / ws.sum()).tolist()
+    if n == 1:
+        ws = [0.5]                      # not the identity shortcut
+    reset_launch_counts()
+    got = flatten_params(aggregate_pytrees(trees, ws))
+    assert agg_ops.launches_leaves == 1 + max(0, -(-(n - 64) // 63))
+    assert launch_counts()["fedavg_agg"] == agg_ops.launches_leaves
+    stacked = torch.stack([flatten_params(t) for t in trees])
+    assert torch.equal(got, aggregate_flat(stacked, ws))
+    torch.testing.assert_close(
+        got, agg_leaves_ref([tree_leaves(t) for t in trees], ws), rtol=0,
+        atol=1e-6)
+
+
+def test_fold_by_leaves_keeps_the_tree(cuda):
+    trees = forecaster_trees(2, 0)
+    out = aggregate_pytrees(trees, [0.25, 0.75])
+    assert list(out) == list(trees[0])
+    for a, b in zip(tree_leaves(out), tree_leaves(trees[0]), strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_cuda
 
 
 # ------------------------------------------------------------- LLM kernels
