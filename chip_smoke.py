@@ -21,7 +21,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
              forward against the chained step kernel bit for bit, the
              backward run twice bit for bit, and ``LSTMSeqFn``'s gradients
              against an f64 evaluation; the fold by leaves against the
-             stacked fold bit for bit, one launch up to 64 trees; times of
+             stacked fold bit for bit, one launch up to 64 trees;
+             ``ewc_update``'s bits on two runs (T not a multiple of 4,
+             views off 16-byte alignment) and one device kernel a call;
+             ssd_chunk with per-group B and C at two groups, n 160, p 80
+             (chunks of 16 and 256) against its plain version and f64;
+             local_attn at head dims 80 (f32, bf16) and 192 (bf16),
+             zero-padded to 128 and 256; the forecaster at hidden 6, 132
+             and 384 (the step route: 768 step launches, no sequence
+             launch) forward and gradient against the CPU route; times of
              kernel (back to back, and its own device time from
              torch.profiler), plain version and library call (cuDNN's
              ``torch.lstm`` for the sequence, forward and forward +
@@ -31,8 +39,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
              read after: every kernel of the path must have launched, the
              LSTM only on the sequence route (two forward scans per
              forecaster forward, two reverse scans per SGD step, no step
-             kernel), and Table II must be finite and inside the system
-             test's bounds.
+             kernel), one ``ewc_update`` launch per anchored SGD step,
+             and Table II must be finite and inside the system test's
+             bounds.
 4. profile — one anchored SGD step at the main path's width: host time with
              and without the backward, device kernels by name and the
              device's idle share (``torch.profiler``).
@@ -113,6 +122,8 @@ AGREE_RUN = dict(hidden=16, n_sites=4, n_days=14, rounds=1, epochs=2,
 AGREE_PP = 0.1          # Table II agreement, percentage points
 DROPOUT_ATOL = 1e-4     # dropout check: parameters, CUDA against the CPU
 SOLAR_PARAMS = 141_953  # parameters of the forecaster at hidden 128
+# hidden sizes the sequence kernels have no launch shape for (the step route)
+LSTM_STEP_HIDDEN = (6, 132, 384)
 
 KERNEL_META = {
     "fedavg_agg": ("src/repro_torch/kernels/csrc/fedavg_agg.cu",
@@ -137,10 +148,10 @@ KERNEL_SYMBOLS = {
     "fedavg_agg": ("fedavg_agg_kernel", "fedavg_agg_leaves_kernel"),
     "lstm_cell": ("lstm_cell_kernel", "lstm_seq_fwd_kernel",
                   "lstm_seq_bwd_kernel"),
-    "ewc_update": ("ewc_partial_kernel", "ewc_finish_kernel"),
+    "ewc_update": ("ewc_update_kernel",),
     "dp_clip_noise": ("dp_sumsq_kernel", "dp_finish_kernel",
                       "dp_apply_kernel"),
-    "ssd_chunk": ("ssd_chunk_kernel",),
+    "ssd_chunk": ("ssd_chunk_tf32_kernel",),
     "local_attn": ("local_attn_tc_kernel", "local_attn_kernel"),
 }
 
@@ -168,6 +179,8 @@ KERNEL_RTOL = 2e-5      # f32 kernel vs plain at path shapes, x max(1, |plain|)
 # KERNEL_RTOL * max|f64| of the f64 scan (the plain oracle's own scan
 # rounds in another order)
 SSD_F64_FACTOR = 2.0
+# ssd_chunk past the shapes PR 15's kernel took: b, c, l, h, p, g, n
+SSD_SHAPES = ((2, 4, 16, 8, 80, 2, 160), (1, 2, 256, 8, 80, 2, 160))
 # local_attn's tensor-core route (bf16) is held the same way: its output at
 # most ATTN_F64_FACTOR times as far from the f64 answer as the plain
 # version's bf16 output
@@ -207,16 +220,11 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(name, fn, iters: int = 50, warmup: int = 3,
-              symbols=None) -> float | None:
-    """The device time of one call's own kernels (``symbols``, by default
-    ``KERNEL_SYMBOLS[name]``), from torch.profiler's device events over
-    ``iters`` calls; None (and a line saying so) when the profiler records
-    no device time."""
+def device_events(fn, symbols, iters: int, warmup: int) -> tuple[list, int]:
+    """torch.profiler's device events of the kernels named by ``symbols``
+    over ``iters`` calls of ``fn``, and the count of all device events."""
     import torch
     from torch.autograd import DeviceType
-
-    symbols = symbols or KERNEL_SYMBOLS[name]
 
     for _ in range(warmup):
         fn()
@@ -227,10 +235,21 @@ def device_ms(name, fn, iters: int = 50, warmup: int = 3,
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    own = [e for e in events if any(sym in e.name for sym in symbols)]
+    return [e for e in events if any(sym in e.name for sym in symbols)], \
+        len(events)
+
+
+def device_ms(name, fn, iters: int = 50, warmup: int = 3,
+              symbols=None) -> float | None:
+    """The device time of one call's own kernels (``symbols``, by default
+    ``KERNEL_SYMBOLS[name]``), from torch.profiler's device events over
+    ``iters`` calls; None (and a line saying so) when the profiler records
+    no device time."""
+    symbols = symbols or KERNEL_SYMBOLS[name]
+    own, n_events = device_events(fn, symbols, iters, warmup)
     if not own:
         print(f"[kernels] {name}: the profiler recorded no device time of "
-              f"{symbols} ({len(events)} device events)")
+              f"{symbols} ({n_events} device events)")
         return None
     return sum(e.time_range.elapsed_us() for e in own) / iters / 1e3
 
@@ -629,13 +648,33 @@ def check_ewc(dev, gen):
     t = SOLAR_PARAMS
     lam = 0.05
     err = 0.0
+    # the path's T (float4 rows), T not a multiple of 4, and views whose
+    # offset breaks 16-byte alignment (the scalar route); each with and
+    # without a Fisher diagonal, run twice: the same bits
+    for n, offset in ((t, 0), (t + 2, 0), (t, 1), (1027, 3)):
+        g, p, a, f = (torch.randn(n + offset, generator=gen,
+                                  device=dev)[offset:] for _ in range(4))
+        for fisher in (None, f.abs()):
+            go, loss = ops.ewc_penalty_grad_flat(lam, g, p, a, fisher)
+            go2, loss2 = ops.ewc_penalty_grad_flat(lam, g, p, a, fisher)
+            require(torch.equal(go, go2) and torch.equal(loss, loss2),
+                    f"ewc_update T={n} offset {offset}: two runs differ")
+            gr, lr = ewc_ref(lam, g, p, a, fisher)
+            torch.testing.assert_close(go, gr, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(loss, lr, rtol=1e-4, atol=0.0)
+            err = max(err, (go - gr).abs().max().item())
+    print("[kernels] ewc_update: two runs bit-equal at T 141,953 and "
+          "141,955, on views 4 and 12 bytes past 16-byte alignment, with "
+          "and without a Fisher diagonal")
     g, p, a = (torch.randn(t, generator=gen, device=dev) for _ in range(3))
-    for fisher in (None, torch.randn(t, generator=gen, device=dev).abs()):
-        go, loss = ops.ewc_penalty_grad_flat(lam, g, p, a, fisher)
-        gr, lr = ewc_ref(lam, g, p, a, fisher)
-        torch.testing.assert_close(go, gr, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(loss, lr, rtol=1e-4, atol=0.0)
-        err = max(err, (go - gr).abs().max().item())
+    own, events = device_events(
+        lambda: ops.ewc_penalty_grad_flat(lam, g, p, a),
+        KERNEL_SYMBOLS["ewc_update"], iters=20, warmup=1)
+    own = len(own)
+    print(f"[kernels] ewc_update: {own} kernel launches in 20 calls "
+          f"({events} device events in all)")
+    require(own == 20 and events == 20, f"ewc_update: {own} of its kernels "
+            f"and {events} device events in 20 calls, expected one each")
     nbytes, flops = 4 * (3 * t + t), 5 * t
     bms, by = bound(nbytes, flops)
     return {"max_abs_err": err, "shape": f"T={t}, F=None",
@@ -643,7 +682,8 @@ def check_ewc(dev, gen):
             "device_ms": device_ms(
                 "ewc_update", lambda: ops.ewc_penalty_grad_flat(lam, g, p, a)),
             "plain_ms": cuda_ms(lambda: ewc_ref(lam, g, p, a)),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "launches_a_call": own / 20}
 
 
 def check_dp(dev, gen):
@@ -739,6 +779,41 @@ def f64_distances(tag, kernel, plain, exact) -> list[tuple[float, float]]:
     return out
 
 
+def ssd_kernel_inputs(gen, b, c, l, h, p, g, n):
+    """Kernel inputs drawn as the mixer makes them (``ssd_scan_inputs``),
+    cut into chunks of l, with B and C once per group."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=gen.device) * scale
+    x, dt = r(b, c * l, h, p), torch.nn.functional.softplus(r(b, c * l, h))
+    A = -torch.exp(r(h, scale=0.5))
+    return ((x * dt[..., None]).reshape(b, c, l, h, p),
+            (dt * A).reshape(b, c, l, h),
+            r(b, c * l, g, n).reshape(b, c, l, g, n),
+            r(b, c * l, g, n).reshape(b, c, l, g, n))
+
+
+def check_ssd_against_plain_and_f64(tag, args) -> float:
+    """The kernel within KERNEL_RTOL of its plain version and at most
+    SSD_F64_FACTOR times as far from the f64 answer; returns the error."""
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+
+    (y, st), (yr, sr) = ops.ssd_intra_chunk(*args), ssd_intra_chunk_ref(*args)
+    e, lim = rel_err(y, yr)
+    e2, lim2 = rel_err(st, sr)
+    print(f"[kernels] {tag}: y_diag err {e:.3e} (limit {lim:.3e}), states "
+          f"err {e2:.3e} (limit {lim2:.3e})")
+    require(e <= lim and e2 <= lim2, f"{tag}: y_diag err {e} (limit {lim}), "
+            f"states err {e2} (limit {lim2})")
+    exact = ssd_intra_chunk_ref(*(a.double() for a in args))
+    for dk, dp in f64_distances(tag, (y, st), (yr, sr), exact):
+        require(dk <= SSD_F64_FACTOR * dp, f"{tag}: the kernel is {dk} from "
+                f"f64, its plain version {dp} (limit x{SSD_F64_FACTOR})")
+    return max(e, e2)
+
+
 def check_ssd(dev, gen):
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_chunk import ops
@@ -753,21 +828,10 @@ def check_ssd(dev, gen):
         scan = ssd_scan_inputs(gen, b, seq)
         args = spy_args(ops, "ssd_intra_chunk",
                         lambda: ops.ssd_chunked_fused(*scan, chunk))
-        (y, st), (yr, sr) = (ops.ssd_intra_chunk(*args),
-                             ssd_intra_chunk_ref(*args))
-        e, lim = rel_err(y, yr)
-        e2, lim2 = rel_err(st, sr)
-        print(f"[kernels] ssd_chunk S={seq}: y_diag err {e:.3e} (limit "
-              f"{lim:.3e}), states err {e2:.3e} (limit {lim2:.3e})")
-        require(e <= lim and e2 <= lim2, f"ssd_chunk at S={seq}: y_diag err "
-                f"{e} (limit {lim}), states err {e2} (limit {lim2})")
-        err = max(err, e, e2)
-        exact = ssd_intra_chunk_ref(*(a.double() for a in args))
-        for dk, dp in f64_distances(f"ssd_chunk S={seq}", (y, st), (yr, sr),
-                                    exact):
-            require(dk <= SSD_F64_FACTOR * dp, f"ssd_chunk at S={seq}: the "
-                    f"kernel is {dk} from f64, its plain version {dp} "
-                    f"(limit x{SSD_F64_FACTOR})")
+        require(args[2].shape[3] == ssm.n_groups, f"ssd_chunk is given "
+                f"{args[2].shape[3]} copies of B, not {ssm.n_groups} group")
+        err = max(err, check_ssd_against_plain_and_f64(
+            f"ssd_chunk S={seq}", args))
         # the whole scan around the kernel against the same scan in f64
         exact = ssd_chunked(*(a.double() for a in scan), chunk)
         for dk, _ in f64_distances(f"ssd_chunked_fused S={seq}",
@@ -781,28 +845,31 @@ def check_ssd(dev, gen):
     print(f"[kernels] ssd_chunked_fused: worst distance to f64 {worst:.3e} x "
           f"max|f64| (limit {KERNEL_RTOL}); kernel vs f64 at most "
           f"x{SSD_F64_FACTOR} its plain version's distance")
+    # shapes past the old caps: two groups, n 160, p 80, short chunks and a
+    # full one
+    for shape in SSD_SHAPES:
+        err = max(err, check_ssd_against_plain_and_f64(
+            f"ssd_chunk b,c,l,h,p,g,n={shape}",
+            ssd_kernel_inputs(gen, *shape)))
     xdt, dA, B, C = path
     nb, nc, l, h, p = xdt.shape
-    n = B.shape[-1]
-    blocks = nb * nc * h
-    # each input read once, each output written once
+    g, n = B.shape[3], B.shape[4]
+    # each input read once, each output written once; C Bᵀ once per group,
+    # the other two products once per head
     nbytes = 4 * (xdt.numel() + dA.numel() + B.numel() + C.numel()
-                  + xdt.numel() + blocks * n * p)
+                  + xdt.numel() + nb * nc * h * n * p)
     tri = l * (l + 1) // 2                      # useful pairs, i >= j
-    flops = blocks * (2 * tri * n + tri + 2 * tri * p + l * p + 2 * l * n * p)
+    flops = nb * nc * (g * 2 * tri * n
+                       + h * (tri + 2 * tri * p + l * p + 2 * l * n * p))
     bms, by = bound(nbytes, flops)
-    # the same outputs from the path's own B and C, one of each per group:
-    # the wrapper's per-head repeat adds (h - g) copies of both and forms
-    # C Bᵀ once per head instead of once per group
-    g = ssm.n_groups
-    extra = nb * nc * (h - g)
-    gbms, gby = bound(nbytes - 4 * 2 * extra * l * n,
-                      flops - extra * 2 * tri * n)
+    # PR 15's bound, from the per-head copies of B and C its wrapper made
+    copies = nb * nc * (h - g)
+    hbms, _ = bound(nbytes + 4 * 2 * copies * l * n,
+                    flops + copies * 2 * tri * n)
     print(f"[kernels] ssd_chunk bound from per-group B and C (g={g}): "
-          f"{gbms:.6f} ms ({gby}); from the per-head copies the kernel is "
-          f"given: {bms:.6f} ms ({by})")
+          f"{bms:.6f} ms ({by}); from per-head copies: {hbms:.6f} ms")
     return {"max_abs_err": err, "shape": f"b={nb}, c={nc}, l={l}, h={h}, "
-                                         f"p={p}, n={n} (S={s})",
+                                         f"p={p}, g={g}, n={n} (S={s})",
             "ms": cuda_ms(lambda: ops.ssd_intra_chunk(*path), iters=50),
             "device_ms": device_ms("ssd_chunk",
                                    lambda: ops.ssd_intra_chunk(*path),
@@ -810,7 +877,7 @@ def check_ssd(dev, gen):
             "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(*path), iters=10,
                                 warmup=2),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "group_bound_ms": gbms, "gflop": flops / 1e9,
+            "head_copies_bound_ms": hbms, "gflop": flops / 1e9,
             "gbytes": nbytes / 1e9}
 
 
@@ -862,6 +929,38 @@ def check_local_attn(dev, gen):
             require(dk <= ATTN_F64_FACTOR * dp, f"local_attn bf16: the "
                     f"kernel is {dk} from f64, its plain version {dp}")
             del exact
+    # head dims between the instantiations (hubert-xlarge's 80, an encoder;
+    # MLA's qk 192), zero-padded to the next one at the caller's scale
+    for dp, dtype, causal in ((80, torch.float32, False),
+                              (80, torch.bfloat16, False),
+                              (192, torch.bfloat16, True)):
+        q, k, v = qkv(1, 16, 16, 1024, dp, dtype)
+        kw = dict(causal=causal, window=0, scale=dp ** -0.5)
+        tc_before = ops.launches_tc
+        got = ops.local_flash_attention(q, k, v, **kw)
+        tc = ops.launches_tc - tc_before
+        require(tc == (dtype == torch.bfloat16), f"local_attn D={dp} {dtype}: "
+                f"{tc} tensor-core launches")
+        want = local_attention_ref(q, k, v, **kw)
+        e, lim = rel_err(got, want)
+        if dtype == torch.bfloat16:
+            lim = 2e-2
+        require(got.shape == q.shape and e <= lim, f"local_attn D={dp} "
+                f"{dtype}: max abs err {e} > {lim}")
+        line = (f"[kernels] local_attn D={dp} (padded to "
+                f"{ops.padded_head_dim(dp)}) {dtype} ({ops.route(dtype, dp)} "
+                f"route), H 16, S 1024, causal {causal}: max abs err {e:.3e} "
+                f"(limit {lim:.3e})")
+        if dtype == torch.bfloat16:
+            exact = local_attention_ref(q.double(), k.double(), v.double(),
+                                        **kw)
+            dk, dpl = f64_distance(got, exact), f64_distance(want, exact)
+            line += (f"; distance to f64 kernel {dk:.3e}, plain bf16 "
+                     f"{dpl:.3e} (limit x{ATTN_F64_FACTOR})")
+            require(dk <= ATTN_F64_FACTOR * dpl, f"local_attn D={dp} bf16: "
+                    f"the kernel is {dk} from f64, its plain version {dpl}")
+        print(line)
+        err = max(err, e)
     q, k, v = qkv(b, 8, 1, s, d, torch.bfloat16)
     # the same inputs as the model hands them over: (b, s, heads, D) views
     views = [t.transpose(1, 2).contiguous().transpose(1, 2)
@@ -903,6 +1002,66 @@ def check_local_attn(dev, gen):
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
 
 
+def check_lstm_step_route(dev) -> dict:
+    """The forecaster at hidden sizes the sequence kernels have no launch
+    shape for: the chained step kernel, forward and loss gradient on the
+    card against the CPU route; returns the step launches of each."""
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.training.losses import solar_loss
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    for hidden in LSTM_STEP_HIDDEN:
+        fc = SolarForecaster(SolarLSTMConfig(hidden_size=hidden))
+        cfg = fc.cfg
+        require(lstm_ops.seq_fits(hidden, cfg.history_channels) is None,
+                f"hidden {hidden}: the sequence kernels take it")
+        params = fc.init(torch.Generator().manual_seed(hidden), "cpu")
+        gen = torch.Generator().manual_seed(3)
+        batch = {"history": torch.rand(3, cfg.history_steps,
+                                       cfg.history_channels, generator=gen),
+                 "forecast": torch.rand(3, cfg.horizon_steps,
+                                        cfg.forecast_channels, generator=gen),
+                 "target": torch.rand(3, cfg.horizon_steps, generator=gen)}
+        live = tree_map(lambda x: x.to(dev).requires_grad_(), params)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss, _ = solar_loss(fc, live, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        torch.cuda.synchronize()
+        steps = launch_counts()["lstm_cell"] - lstm_ops.launches_seq_fwd - \
+            lstm_ops.launches_seq_bwd
+        want_steps = cfg.history_steps + cfg.horizon_steps
+        require(steps == want_steps and lstm_ops.launches_seq_fwd == 0,
+                f"hidden {hidden}: {steps} step launches, "
+                f"{lstm_ops.launches_seq_fwd} sequence forwards")
+        with torch.no_grad():
+            fwd = fc.forward(tree_map(lambda x: x.to(dev), params),
+                             batch["history"].to(dev),
+                             batch["forecast"].to(dev))
+        want_fwd = fc.forward(params, batch["history"], batch["forecast"])
+        ferr = (fwd.cpu() - want_fwd).abs().max().item()
+        require(ferr <= 1e-5, f"hidden {hidden}: forecast off the CPU route "
+                              f"by {ferr}")
+        cpu_live = tree_map(lambda x: x.clone().requires_grad_(), params)
+        cpu_loss, _ = solar_loss(fc, cpu_live, batch)
+        cpu_grads = torch.autograd.grad(cpu_loss, tree_leaves(cpu_live))
+        for a, w in zip(grads, cpu_grads, strict=True):
+            torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-5)
+        gerr = max((a.cpu() - w).abs().max().item()
+                   for a, w in zip(grads, cpu_grads, strict=True))
+        print(f"[kernels] forecaster at hidden {hidden} (step route): "
+              f"{steps} step launches a forward + gradient, no sequence "
+              f"launch; forecast vs CPU max abs err {ferr:.3e} (limit 1e-5), "
+              f"gradient {gerr:.3e} (rtol 1e-4, atol 1e-5)")
+        out[str(hidden)] = steps
+    return out
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
@@ -937,6 +1096,7 @@ def phase_kernels(dev) -> dict:
                         if k not in ("bound_by",)})
             res["max_abs_err"] = max(res["max_abs_err"], more["max_abs_err"])
         results[name] = res
+    results["lstm_cell"]["step_route_launches"] = check_lstm_step_route(dev)
     extras = {k: v for k, v in results["lstm_cell"].items()
               if k.startswith(("bwd", "fwd_bwd", "decoder", "serial",
                                "step_exchange"))}
@@ -986,8 +1146,9 @@ def counted_run(dev, cfg):
     from repro_torch.kernels.lstm_cell import ops as lstm_ops
     from repro_torch.models.lstm import SolarForecaster
 
-    calls = {"forwards": 0, "sgd_steps": 0}
+    calls = {"forwards": 0, "sgd_steps": 0, "anchored_steps": 0}
     forward, loss = SolarForecaster.forward, fed_solar.solar_loss
+    anchored = fed_solar.ewc_adjusted_gradient
 
     def counted_forward(self, *a, **kw):
         calls["forwards"] += 1
@@ -996,8 +1157,13 @@ def counted_run(dev, cfg):
     def counted_loss(*a, **kw):
         calls["sgd_steps"] += 1
         return loss(*a, **kw)
+
+    def counted_anchor(*a, **kw):
+        calls["anchored_steps"] += 1
+        return anchored(*a, **kw)
     SolarForecaster.forward, fed_solar.solar_loss = counted_forward, \
         counted_loss
+    fed_solar.ewc_adjusted_gradient = counted_anchor
     try:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1007,6 +1173,7 @@ def counted_run(dev, cfg):
         wall = time.perf_counter() - t0
     finally:
         SolarForecaster.forward, fed_solar.solar_loss = forward, loss
+        fed_solar.ewc_adjusted_gradient = anchored
     routes = {"lstm_seq_fwd": lstm_ops.launches_seq_fwd,
               "lstm_seq_bwd": lstm_ops.launches_seq_bwd,
               "fedavg_agg_leaves": agg_ops.launches_leaves, **calls}
@@ -1016,7 +1183,8 @@ def counted_run(dev, cfg):
 def require_sequence_route(counts, routes, what):
     """The LSTM ran only as sequence scans: two forwards per forecaster
     forward (encoder, decoder), two reverse scans per SGD step, no step
-    kernel; every fold by leaves."""
+    kernel; every fold by leaves; one ewc_update launch per anchored SGD
+    step."""
     steps = counts["lstm_cell"] - routes["lstm_seq_fwd"] - \
         routes["lstm_seq_bwd"]
     require(steps == 0, f"{what}: {steps} lstm_cell step launches")
@@ -1029,6 +1197,10 @@ def require_sequence_route(counts, routes, what):
     require(counts["fedavg_agg"] == routes["fedavg_agg_leaves"],
             f"{what}: {counts['fedavg_agg']} folds, "
             f"{routes['fedavg_agg_leaves']} by leaves")
+    require(routes["anchored_steps"] > 0 and counts["ewc_update"]
+            == routes["anchored_steps"], f"{what}: {counts['ewc_update']} "
+            f"ewc_update launches for {routes['anchored_steps']} anchored "
+            "SGD steps")
 
 
 MAIN_KERNELS = ("fedavg_agg", "lstm_cell", "ewc_update")

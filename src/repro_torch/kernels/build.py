@@ -35,7 +35,7 @@ SIGNATURES = {
     "lstm_cell_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ewc_update_launch": [_F, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "dp_clip_noise_launch": [_P, _P, _F, _F, _L, _P, _P, _P],
-    "ssd_chunk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "ssd_chunk_launch": [*[_P] * 4, *[_I] * 8, _P, _P, _P],
     "local_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                           _I, _I, _P],
     "local_attn_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -165,7 +165,10 @@ def require_f32_contiguous(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def stream_handle(device) -> int:
-    """PyTorch's current stream on ``device``, as the pointer-sized integer
-    the launch functions take."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on the CUDA ``device``, as the pointer-sized
+    integer the launch functions take.  Read without building a
+    ``torch.cuda.Stream`` (4 us a call on an H100 host,
+    tools/ewc_wrapper_split.py): the same handle as
+    ``torch.cuda.current_stream(device).cuda_stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,5 +1,11 @@
 """Public wrapper of the fused anchor update: CUDA tensors launch
-``csrc/ewc_update.cu``, CPU tensors run ``ref.ewc_ref``."""
+``csrc/ewc_update.cu`` (one launch a call), CPU tensors run
+``ref.ewc_ref``.
+
+The kernel's scratch (a partial sum per block and the ticket that elects
+the block adding them up) is allocated and zeroed once per (device,
+stream) and kept: the kernel leaves the ticket at 0, and two streams never
+share one."""
 
 from __future__ import annotations
 
@@ -8,8 +14,21 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ewc_update.ref import ewc_ref
 
-MAX_BLOCKS = 1024    # EWC_MAX_BLOCKS in csrc/ewc_update.cu (partials buffer)
+MAX_BLOCKS = 1024    # EWC_MAX_BLOCKS in csrc/ewc_update.cu
 launches = 0
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def workspace(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's scratch on ``device`` for ``stream``: MAX_BLOCKS
+    partials, then the ticket (four floats, zero bits)."""
+    key = (device.index, stream)
+    work = _workspaces.get(key)
+    if work is None:
+        work = _workspaces[key] = torch.zeros(MAX_BLOCKS + 4,
+                                              dtype=torch.float32,
+                                              device=device)
+    return work
 
 
 def ewc_penalty_grad_flat(lam, grads, params, anchor, fisher=None):
@@ -29,16 +48,15 @@ def ewc_penalty_grad_flat(lam, grads, params, anchor, fisher=None):
     if grads.dim() != 1:
         raise ValueError("ewc_update: tensors must be flat (T,)")
     g_out = torch.empty_like(grads)
+    loss = torch.empty((), dtype=torch.float32, device=grads.device)
     t = grads.numel()
     if t == 0:
-        return g_out, torch.zeros((), dtype=torch.float32, device=grads.device)
-    loss = torch.empty((), dtype=torch.float32, device=grads.device)
-    partials = torch.empty(MAX_BLOCKS, dtype=torch.float32,
-                           device=grads.device)
+        return g_out, loss.zero_()
+    stream = build.stream_handle(grads.device)
     status = build.library().ewc_update_launch(
         float(lam), grads.data_ptr(), params.data_ptr(), anchor.data_ptr(),
         None if fisher is None else fisher.data_ptr(), t, g_out.data_ptr(),
-        partials.data_ptr(), loss.data_ptr(), build.stream_handle(grads.device))
+        workspace(grads.device, stream).data_ptr(), loss.data_ptr(), stream)
     build.check(status, "ewc_update")
     launches += 1
     return g_out, loss

@@ -13,6 +13,12 @@ of two kernels, CPU tensors run ``ref.local_attention_ref``.
   passes the unpadded T as ``t_real``; the kernel masks the padded keys and
   the wrapper drops the padded rows.
 
+A head dim between the instantiations (hubert-xlarge's 80, MLA's 192) is
+zero-padded on the last dim of q, k and v to the next one
+(``padded_head_dim``, ``pad_head_dim``): the padded columns add nothing to
+q·k, the caller's ``scale`` is passed on unchanged, and the output is
+sliced back to D.  The route follows the padded D.  D > 256 raises.
+
 ``launches`` counts every launch; ``launches_tc`` the tensor-core route's.
 """
 
@@ -33,10 +39,29 @@ launches = 0
 launches_tc = 0
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The instantiated head dim a call of ``head_dim`` runs at: the least
+    of ``HEAD_DIMS`` that holds it."""
+    for d in HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(f"local_attn: head_dim {head_dim} is above the "
+                     f"kernels' largest, {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(q, k, v):
+    """q, k, v zero-padded on the last dim to ``padded_head_dim``; the
+    tensors themselves where D is instantiated."""
+    extra = padded_head_dim(q.shape[-1]) - q.shape[-1]
+    if not extra:
+        return q, k, v
+    return tuple(F.pad(t, (0, extra)) for t in (q, k, v))
+
+
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call takes: ``"tc"`` (bf16 on the tensor cores) or
     ``"cuda_core"`` (f32 inside, on the CUDA cores)."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and padded_head_dim(head_dim) in TC_HEAD_DIMS:
         return "tc"
     return "cuda_core"
 
@@ -83,7 +108,7 @@ def _launch_tc(q, k, v, causal, window, scale):
 def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: float = 1.0):
     """q: (B, H, S, D); k/v: (B, KV, T, D), f32 or bf16 -> (B, H, S, D) in
-    q's dtype.  Arbitrary S/T."""
+    q's dtype.  Arbitrary S/T, any D up to 256."""
     if not build.on_cuda("local_attn", q, k, v):
         return local_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
@@ -99,9 +124,7 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"local_attn: q, k, v must share one dtype of "
                          f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"local_attn: head_dim {D} is not one of the "
-                         f"kernel's {HEAD_DIMS}")
+    padded_head_dim(D)                  # raises above the largest
     if KV < 1 or H % KV:
         raise ValueError(f"local_attn: {H} query heads over {KV} kv heads")
     if window < 0:
@@ -111,6 +134,10 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return q.new_empty(out_shape)
     if T == 0:
         raise ValueError("local_attn: no keys (T = 0)")
+    if padded_head_dim(D) != D:
+        q, k, v = pad_head_dim(q, k, v)
+        return local_flash_attention(q, k, v, causal=causal, window=window,
+                                     scale=scale)[..., :D]
     if route(q.dtype, D) == "tc":
         return _launch_tc(q, k, v, causal, window, scale)
     pad_q, pad_k = (-S) % BLK_Q, (-T) % BLK_K

@@ -12,7 +12,8 @@ single-step API.
 launch each (``csrc/lstm_seq.cu``: a forward scan, and the reverse scan of
 its backward, on a thread-block cluster); CPU tensors run
 ``ref.lstm_seq_ref`` / ``ref.lstm_seq_bwd_ref``.  ``LSTMSeqFn`` joins them
-into the differentiable scan that ``models.lstm.lstm_scan`` takes.
+into the differentiable scan that ``models.lstm.lstm_scan`` takes where
+``seq_fits`` finds a launch shape; elsewhere it chains ``LSTMCellFn``.
 
 ``launches`` counts every launch of the three kernels; ``launches_seq_fwd``
 and ``launches_seq_bwd`` count the sequence route alone and stay out of
@@ -159,11 +160,12 @@ def seq_smem(hidden: int, in_dim: int, cluster: int,
     return fwd, bwd
 
 
-def seq_cluster(hidden: int, in_dim: int) -> int:
-    """CTAs per cluster: the first of ``CLUSTER_ORDER`` that divides the
-    hidden columns into groups of four and whose threads and slices of Wh
-    and Wx fit a block (8 at the forecaster's width).  Raises where none
-    does."""
+def seq_fits(hidden: int, in_dim: int) -> int | None:
+    """CTAs per cluster of the sequence kernels at (hidden, in_dim): the
+    first of ``CLUSTER_ORDER`` that divides the hidden columns into groups
+    of four and whose threads and slices of Wh and Wx fit a block (8 at the
+    forecaster's width); None where none does, and ``models.lstm.lstm_scan``
+    then takes the step route."""
     for cs in CLUSTER_ORDER:
         if (hidden % (4 * cs) == 0
                 and max(seq_threads(hidden, cs, SEQ_MAX_TILE))
@@ -171,9 +173,18 @@ def seq_cluster(hidden: int, in_dim: int) -> int:
                 and max(seq_smem(hidden, in_dim, cs, SEQ_MAX_TILE))
                 <= SEQ_MAX_SMEM):
             return cs
-    raise ValueError(f"lstm_seq: no cluster shape for hidden {hidden}, input "
-                     f"{in_dim} (hidden must be a multiple of 4, and a slice "
-                     "of Wh must fit a block's shared memory)")
+    return None
+
+
+def seq_cluster(hidden: int, in_dim: int) -> int:
+    """``seq_fits``, raising where no cluster shape fits."""
+    cs = seq_fits(hidden, in_dim)
+    if cs is None:
+        raise ValueError(f"lstm_seq: no cluster shape for hidden {hidden}, "
+                         f"input {in_dim} (hidden must be a multiple of 4, "
+                         "and a slice of Wh must fit a block's shared "
+                         "memory)")
+    return cs
 
 
 def _seq_shapes(xs, h0, c0, wx, wh, b):

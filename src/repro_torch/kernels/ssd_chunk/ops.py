@@ -1,17 +1,26 @@
 """Public wrappers of the fused intra-chunk SSD.
 
 ``ssd_intra_chunk``: CUDA tensors launch ``csrc/ssd_chunk.cu``, CPU tensors
-run ``ref.ssd_intra_chunk_ref``.  ``ssd_chunked_fused`` is the whole
-chunked scan around it, with the signature and semantics of
-``repro_torch.models.ssm.ssd_chunked``:
+run ``ref.ssd_intra_chunk_ref``.  B and C come once per group, (b, c, l, g,
+n): head ``hi`` reads group ``hi // (h // g)``, and ``g == h`` is the
+reference kernel's head-broadcast call.  The kernel forms C Bᵀ once per
+group and block of heads (``heads_per_block``), runs all three products on
+the tensor cores from exact three-way tf32 splits of their operands
+(``csrc/ssd_chunk.cu``), and takes any l, n and p.
+
+``ssd_chunked_fused`` is the whole chunked scan around it, with the
+signature and semantics of ``repro_torch.models.ssm.ssd_chunked``:
   x: (b, l, h, p), dt: (b, l, h), A: (h,), B/C: (b, l, g, n)
   -> (y (b, l, h, p), final_state (b, h, p, n))
-Pipeline, as the reference's ``ssd_chunked_pallas``: pad to the chunk,
-repeat B and C per head, the kernel for (y_diag, chunk states), then the
-inter-chunk recurrence and the off-diagonal term in PyTorch.
+Pipeline, as the reference's ``ssd_chunked_pallas`` but without its
+per-head copies of B and C: pad to the chunk, the kernel for (y_diag,
+chunk states), then the inter-chunk recurrence and the off-diagonal term
+(from the grouped C) in PyTorch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -19,38 +28,70 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 
-MAX_N = 128     # SSD_MAX_N in csrc/ssd_chunk.cu
-MAX_P = 64      # SSD_MAX_P
+HEADS_PER_BLOCK = (4, 2, 1)     # the kernel's instantiations, largest first
+MAX_SMEM = 232_448              # SSD_MAX_SMEM in csrc/ssd_chunk.cu
 launches = 0
 
 
+def smem_bytes(hb: int, l: int) -> int:
+    """Dynamic shared memory of a CTA of ``hb`` heads at chunk length l, as
+    ``csrc/ssd_chunk.cu``'s launcher sizes it: a 3-stage ring of the
+    largest step's tiles, G, and dA_cum for each head."""
+    stage = max(2 * 64 * 68, (1 + hb) * 32 * 72)
+    return 4 * (3 * stage + 64 * 68 + hb * 64 * -(-l // 64))
+
+
+def heads_per_block(blocks: int, h: int, g: int, sms: int, l: int) -> int:
+    """Heads a CTA takes: the most of ``HEADS_PER_BLOCK`` that divides the
+    heads of a group, fits shared memory at chunk length l and still gives
+    every one of ``sms`` SMs a CTA (``blocks`` = b * c CTAs per head
+    block), else the fewest that fits.  The kernel forms C Bᵀ once per
+    CTA, so more heads a CTA is less work.  Raises where none fits."""
+    fits = [hb for hb in HEADS_PER_BLOCK
+            if (h // g) % hb == 0 and smem_bytes(hb, l) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"ssd_chunk: a chunk of {l} does not fit a block's "
+                         "shared memory")
+    for hb in fits:
+        if blocks * (h // hb) >= sms:
+            return hb
+    return fits[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ssd_intra_chunk(xdt, dA, B, C):
-    """xdt: (b,c,l,h,p); dA: (b,c,l,h); B, C: (b,c,l,h,n), all f32.
-    Returns (y_diag (b,c,l,h,p), states (b,c,h,n,p))."""
+    """xdt: (b,c,l,h,p); dA: (b,c,l,h); B, C: (b,c,l,g,n) with g dividing
+    h, all f32.  Returns (y_diag (b,c,l,h,p), states (b,c,h,n,p))."""
     if not build.on_cuda("ssd_chunk", xdt, dA, B, C):
         return ssd_intra_chunk_ref(xdt, dA, B, C)
     global launches
     build.require_f32_contiguous("ssd_chunk", xdt=xdt, dA=dA, B=B, C=C)
-    if xdt.dim() != 5:
-        raise ValueError("ssd_chunk: xdt must be (b, c, l, h, p)")
+    if xdt.dim() != 5 or B.dim() != 5:
+        raise ValueError("ssd_chunk: xdt must be (b, c, l, h, p) and B, C "
+                         "(b, c, l, g, n)")
     b, c, l, h, p = xdt.shape
-    n = B.shape[-1]
-    for name, t, want in (("dA", dA, (b, c, l, h)), ("B", B, (b, c, l, h, n)),
-                          ("C", C, (b, c, l, h, n))):
+    g, n = B.shape[3], B.shape[4]
+    if g < 1 or h % g:
+        raise ValueError(f"ssd_chunk: {h} heads over {g} groups")
+    for name, t, want in (("dA", dA, (b, c, l, h)), ("B", B, (b, c, l, g, n)),
+                          ("C", C, (b, c, l, g, n))):
         if tuple(t.shape) != want:
             raise ValueError(f"ssd_chunk: {name} has shape {tuple(t.shape)}, "
                              f"expected {want}")
-    if n > MAX_N or p > MAX_P:
-        raise ValueError(f"ssd_chunk: the kernel takes d_state <= {MAX_N} and "
-                         f"head_dim <= {MAX_P}, got n={n}, p={p}")
     y = torch.empty_like(xdt)
     states = torch.empty((b, c, h, n, p), dtype=torch.float32,
                          device=xdt.device)
-    if y.numel() == 0:
-        return y, states
+    if y.numel() == 0 or states.numel() == 0:      # empty sums
+        return y.zero_(), states.zero_()
+    hb = heads_per_block(b * c, h, g, _sm_count(xdt.device.index), l)
     status = build.library().ssd_chunk_launch(
         xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), b, c, l, h,
-        p, n, y.data_ptr(), states.data_ptr(), build.stream_handle(xdt.device))
+        g, p, n, hb, y.data_ptr(), states.data_ptr(),
+        build.stream_handle(xdt.device))
     build.check(status, "ssd_chunk")
     launches += 1
     return y, states
@@ -67,18 +108,18 @@ def ssd_chunked_fused(x, dt, A, B, C, chunk: int, init_state=None):
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
     L = l + pad
     c = L // chunk
-    rep = h // g
+    r = h // g
     f32 = torch.float32
 
     xc = x.reshape(b, c, chunk, h, p).to(f32)
     dtc = dt.reshape(b, c, chunk, h).to(f32)
-    Bh = B.reshape(b, c, chunk, g, n).repeat_interleave(rep, dim=3).to(f32)
-    Ch = C.reshape(b, c, chunk, g, n).repeat_interleave(rep, dim=3).to(f32)
+    Bg = B.reshape(b, c, chunk, g, n).to(f32)
+    Cg = C.reshape(b, c, chunk, g, n).to(f32)
     xdt = xc * dtc[..., None]
     dA = dtc * A[None, None, None, :]
 
     y_diag, states = ssd_intra_chunk(xdt.contiguous(), dA.contiguous(),
-                                     Bh.contiguous(), Ch.contiguous())
+                                     Bg.contiguous(), Cg.contiguous())
     states = states.transpose(3, 4)                        # (b,c,h,p,n)
 
     # inter-chunk recurrence (sequential over c)
@@ -92,10 +133,12 @@ def ssd_chunked_fused(x, dt, A, B, C, chunk: int, init_state=None):
         carry = carry * chunk_decay[:, :, ci, None, None] + states[:, ci]
     prev_states = torch.stack(prev, dim=1)                 # (b,c,h,p,n)
 
-    # off-diagonal output: prior state flowing into each chunk position
+    # off-diagonal output: prior state flowing into each chunk position,
+    # the heads seen as (g, h // g) so each group's C serves its heads
     state_decay_out = torch.exp(dA_cum)                    # (b,h,c,l)
-    y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Ch, prev_states,
-                         state_decay_out)
+    y_off = torch.einsum("bclgn,bcgrpn,bgrcl->bclgrp", Cg,
+                         prev_states.reshape(b, c, g, r, p, n),
+                         state_decay_out.reshape(b, g, r, c, chunk))
 
-    y = (y_diag + y_off).reshape(b, L, h, p)
+    y = (y_diag + y_off.reshape(b, c, chunk, h, p)).reshape(b, L, h, p)
     return y[:, :l].to(x.dtype), carry.to(x.dtype)

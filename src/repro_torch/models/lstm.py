@@ -1,10 +1,15 @@
 """Case-study forecaster (paper §III): LSTM encoder over 7-day history +
 
 forecast-conditioned LSTM decoder emitting 96 quarter-hour power predictions.
-Each scan is one ``kernels.lstm_cell.LSTMSeqFn``: on CUDA tensors one launch
-of the whole-sequence kernel forward and one of its reverse scan backward;
-on CPU tensors their plain versions.  Parameters are a plain dict with the
-JAX package's keys; ``forward`` takes that dict.
+Each scan takes its route from its shape alone
+(``kernels.lstm_cell.ops.seq_fits``): where the whole-sequence kernels
+have a launch shape it is one
+``kernels.lstm_cell.LSTMSeqFn`` (on CUDA tensors one launch of the sequence
+kernel forward and one of its reverse scan backward), elsewhere a chain of
+``LSTMCellFn`` steps (one step kernel launch a step, its backward in
+PyTorch ops); on CPU tensors both routes run their plain versions.
+Parameters are a plain dict with the JAX package's keys; ``forward`` takes
+that dict.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.solar_lstm import SolarLSTMConfig
-from repro_torch.kernels.lstm_cell.ops import LSTMSeqFn
+from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, LSTMSeqFn, seq_fits
 from repro_torch.sharding.logical import ParamSpec, init_from_schema
 from repro_torch.utils.device import resolve_device
 
@@ -28,9 +33,17 @@ def lstm_cell_schema(in_dim: int, hidden: int) -> dict:
 
 def lstm_scan(p, xs, h0, c0):
     """xs: (b, t, in) -> outputs (b, t, hidden), (hT, cT)."""
-    ys, h, c = LSTMSeqFn.apply(xs.transpose(0, 1).contiguous(),   # (t, b, in)
-                               h0, c0, p["wx"], p["wh"], p["b"])
-    return ys.transpose(0, 1), (h, c)
+    xt = xs.transpose(0, 1).contiguous()                          # (t, b, in)
+    if seq_fits(h0.shape[1], xs.shape[2]) is not None:
+        ys, h, c = LSTMSeqFn.apply(xt, h0, c0, p["wx"], p["wh"], p["b"])
+        return ys.transpose(0, 1), (h, c)
+    h, c, ys = h0, c0, []
+    for x in xt:
+        h, c = LSTMCellFn.apply(x, h, c, p["wx"], p["wh"], p["b"])
+        ys.append(h)
+    ys = torch.stack(ys, dim=1) if ys else xs.new_zeros(
+        (xs.shape[0], 0, h0.shape[1]))
+    return ys, (h, c)
 
 
 class SolarForecaster:

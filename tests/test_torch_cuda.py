@@ -39,6 +39,18 @@ atomics); ``LSTMSeqFn``'s gradients sit within 2e-5 * max|f64| of the
 gradient evaluated in f64, and at T 40 match autograd of the plain loop at
 rtol 1e-4 / atol 1e-5.  The fold by leaves equals the stacked fold bit for
 bit (the same FMAs in the same order), one launch for up to 64 trees.
+
+The shapes the kernels once refused: the forecaster at hidden 6, 132 and
+384 takes the chained step kernel (forecast atol 1e-5, gradient rtol 1e-4 /
+atol 1e-5 against the CPU route); ``local_attn`` at head dims 48, 80 and
+192 runs zero-padded to the next instantiation (f32 atol 2e-5; bf16 on the
+tensor cores, held like the route above) and raises above 256; the SSD
+kernel takes any n and p with B and C per group, held to 2e-5 * max(1,
+max|plain|) and to twice the plain version's distance from f64, and gives
+the bits of its own head-broadcast call.  ``ewc_update`` is one launch
+whose loss is summed in a fixed order: two runs give the same bits, on
+float4 rows and on views off 16-byte alignment, with a workspace per
+stream.
 """
 
 import pytest
@@ -49,6 +61,7 @@ from repro_torch.core.aggregation import _pad_pow2
 from repro_torch.kernels.dp_clip_noise.ops import privatize_flat
 from repro_torch.kernels.dp_clip_noise.ref import dp_clip_noise_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.ewc_update import ops as ewc_ops
 from repro_torch.kernels.ewc_update.ops import ewc_penalty_grad_flat
 from repro_torch.kernels.ewc_update.ref import ewc_ref
 from repro_torch.kernels.fedavg_agg.ops import aggregate_flat
@@ -200,6 +213,42 @@ def test_ewc_kernel_matches_plain(with_fisher, cuda):
     torch.testing.assert_close(loss, lr, rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("t,offset", [(T, 0), (T, 1), (5, 0), (1027, 3),
+                                      ((1 << 20) + 3, 0)])
+@pytest.mark.parametrize("with_fisher", [False, True])
+def test_ewc_kernel_gives_the_same_bits_twice(t, offset, with_fisher, cuda):
+    """One launch a call; the block that finishes last adds the partials in
+    index order, so two runs agree bit for bit, on float4 rows (offset 0)
+    and on views that break 16-byte alignment (the scalar route)."""
+    gen = torch.Generator(device=cuda).manual_seed(t + offset)
+    g, p, a, f = (randn(gen, t + offset)[offset:] for _ in range(4))
+    f = f.abs() if with_fisher else None
+    before = launch_counts()["ewc_update"]
+    first = ewc_penalty_grad_flat(0.05, g, p, a, f)
+    again = ewc_penalty_grad_flat(0.05, g, p, a, f)
+    assert launch_counts()["ewc_update"] == before + 2
+    for x, y in zip(first, again, strict=True):
+        assert torch.equal(x, y)
+    gr, lr = ewc_ref(0.05, g, p, a, f)
+    torch.testing.assert_close(first[0], gr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(first[1], lr, rtol=1e-4, atol=0)
+
+
+def test_ewc_kernel_keeps_one_workspace_per_stream(cuda):
+    """Each stream gets its own partials and ticket; results agree."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g, p, a = (randn(gen, T) for _ in range(3))
+    want = ewc_penalty_grad_flat(0.1, g, p, a)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = ewc_penalty_grad_flat(0.1, g, p, a)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert (cuda.index, side.cuda_stream) in ewc_ops._workspaces
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
+
+
 def test_forecaster_on_card_matches_cpu(cuda):
     """The 672 + 96 steps as two sequence launches (encoder, decoder)
     against the plain loop, same weights and inputs."""
@@ -241,6 +290,37 @@ def test_forecaster_gradient_on_card_matches_cpu(cuda):
     assert lstm_ops.launches_seq_fwd == 2 and lstm_ops.launches_seq_bwd == 2
     assert launch_counts()["lstm_cell"] == 4
     for a, b in zip(got, grads("cpu"), strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden", [6, 132, 384])
+def test_forecaster_step_route_on_card_matches_cpu(hidden, cuda):
+    """Hidden sizes the sequence kernels have no launch shape for take the
+    chained step kernel, forward and gradient, against the CPU route."""
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=hidden))
+    params = fc.init(torch.Generator().manual_seed(hidden), "cpu")
+    gen = torch.Generator().manual_seed(3)
+    batch = {"history": torch.rand(3, fc.cfg.history_steps,
+                                   fc.cfg.history_channels, generator=gen),
+             "forecast": torch.rand(3, fc.cfg.horizon_steps,
+                                    fc.cfg.forecast_channels, generator=gen),
+             "target": torch.rand(3, fc.cfg.horizon_steps, generator=gen)}
+    steps = fc.cfg.history_steps + fc.cfg.horizon_steps
+    reset_launch_counts()
+    got = fc.forward(tree_map(lambda x: x.to(cuda), params),
+                     batch["history"].to(cuda), batch["forecast"].to(cuda))
+    assert launch_counts()["lstm_cell"] == steps
+    assert lstm_ops.launches_seq_fwd == 0 and lstm_ops.launches_seq_bwd == 0
+    torch.testing.assert_close(got.cpu(), fc.forward(params, batch["history"],
+                                                     batch["forecast"]),
+                               rtol=0, atol=1e-5)
+
+    def grads(dev):
+        live = tree_map(lambda x: x.to(dev).requires_grad_(), params)
+        loss, _ = solar_loss(fc, live, {k: v.to(dev)
+                                        for k, v in batch.items()})
+        return torch.autograd.grad(loss, tree_leaves(live))
+    for a, b in zip(grads(cuda), grads("cpu"), strict=True):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
 
 
@@ -478,9 +558,36 @@ def test_local_attn_f32_stays_on_the_cuda_cores(cuda):
 
 
 def test_local_attn_kernel_refuses_other_head_dims(cuda):
-    q = torch.zeros(1, 1, 32, 48, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 48"):
+    """Head dims up to 256 are padded to an instantiation (next test);
+    above it no kernel is built, and the wrapper raises."""
+    q = torch.zeros(1, 1, 32, 320, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 320"):
         local_flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("D,dtype", [
+    (48, torch.float32), (48, torch.bfloat16), (80, torch.float32),
+    (80, torch.bfloat16), (192, torch.bfloat16), (192, torch.float32)])
+def test_local_attn_kernel_takes_padded_head_dims(D, dtype, cuda):
+    """D between the instantiations (hubert-xlarge 80, MLA's qk 192) runs
+    zero-padded to the next one at the caller's scale: bf16 on the tensor
+    cores (and as close to f64 as the plain version), f32 on the CUDA
+    cores."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = attn_case(gen, 2, 4, 2, 100, D, dtype)
+    before, before_tc = attn_ops.launches, attn_ops.launches_tc
+    out = local_flash_attention(q, k, v, causal=True, window=40,
+                                scale=D ** -0.5)
+    tc = dtype == torch.bfloat16
+    assert (attn_ops.launches, attn_ops.launches_tc) == (before + 1,
+                                                         before_tc + tc)
+    assert out.shape == q.shape and out.dtype == dtype
+    if tc:
+        attn_f64_check(q, k, v, out, causal=True, window=40, scale=D ** -0.5)
+    else:
+        want = local_attention_ref(q, k, v, causal=True, window=40,
+                                   scale=D ** -0.5)
+        torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
 
 
 def test_local_attn_window_actually_limits_context(cuda):
@@ -540,20 +647,17 @@ def test_ssd_kernel_matches_plain_on_the_sweep(b, l, h, p, g, n, chunk, cuda):
 
 @pytest.mark.parametrize("b,s", [(4, 2048), (4, 2000), (1, 520)])
 def test_ssd_kernel_at_the_path_shapes(b, s, cuda):
-    """mamba2-370m: l 256, h 32, p 64, n 128, one group; 2000 and 520
-    tokens take the padding path."""
+    """mamba2-370m: l 256, h 32, p 64, n 128, one group of B and C (as the
+    path hands them over); 2000 and 520 tokens take the padding path."""
     gen = torch.Generator(device=cuda).manual_seed(s)
     x, dt, A, B, C = ssd_inputs(gen, b, s, 32, 64, 1, 128)
     c = -(-s // 256)
     pad = c * 256 - s
     xdt = torch.nn.functional.pad(x * dt[..., None], (0, 0, 0, 0, 0, pad))
     dA = torch.nn.functional.pad(dt * A, (0, 0, 0, pad))
-    Bh = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad)).expand(
-        b, c * 256, 32, 128)
-    Ch = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad)).expand(
-        b, c * 256, 32, 128)
+    Bg, Cg = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (B, C))
     args = [t.reshape(b, c, 256, *t.shape[2:]).contiguous()
-            for t in (xdt, dA, Bh, Ch)]
+            for t in (xdt, dA, Bg, Cg)]
     y, st = ssd_intra_chunk(*args)
     yr, sr = ssd_intra_chunk_ref(*args)
     full_close(y, yr, "ssd_chunk y_diag")
@@ -573,10 +677,63 @@ def f64_distance(got, exact):
 
 
 def test_ssd_kernel_refuses_states_it_cannot_hold(cuda):
-    x = torch.zeros(1, 1, 8, 1, 65, device=cuda)
-    bc = torch.zeros(1, 1, 8, 1, 4, device=cuda)
-    with pytest.raises(ValueError, match="head_dim <= 64"):
+    """The kernel tiles n and p, so a head dim of 65 and a state of 160,
+    once refused, are computed; what it still refuses is a head count the
+    groups do not divide."""
+    gen = torch.Generator(device=cuda).manual_seed(65)
+    args = ssd_group_args(gen, 1, 1, 8, 1, 65, 1, 160)
+    before = launch_counts()["ssd_chunk"]
+    y, st = ssd_intra_chunk(*args)
+    assert launch_counts()["ssd_chunk"] == before + 1
+    ssd_close_and_f64(args, (y, st))
+    x = torch.zeros(1, 1, 8, 3, 4, device=cuda)
+    bc = torch.zeros(1, 1, 8, 2, 4, device=cuda)
+    with pytest.raises(ValueError, match="3 heads over 2 groups"):
         ssd_intra_chunk(x, x[..., 0].contiguous(), bc, bc)
+
+
+def ssd_group_args(gen, b, c, l, h, p, g, n):
+    """Kernel inputs with one B and C per group, dA negative."""
+    return (randn(gen, b, c, l, h, p), -randn(gen, b, c, l, h).abs() * 0.5,
+            randn(gen, b, c, l, g, n), randn(gen, b, c, l, g, n))
+
+
+def ssd_close_and_f64(args, got):
+    """The kernel's outputs within 2e-5 * max(1, max|plain|) of the plain
+    version and at most SSD_F64_FACTOR times as far from f64."""
+    want = ssd_intra_chunk_ref(*args)
+    exact = ssd_intra_chunk_ref(*(t.double() for t in args))
+    for k, p, e, what in zip(got, want, exact, ("y_diag", "states"),
+                             strict=True):
+        full_close(k, p, f"ssd_chunk {what}")
+        assert f64_distance(k, e) <= SSD_F64_FACTOR * f64_distance(p, e)
+
+
+@pytest.mark.parametrize("b,c,l,h,p,g,n", [
+    (2, 2, 32, 4, 80, 2, 160),     # g 2, n 160, p 80
+    (1, 2, 20, 6, 80, 2, 160),     # three heads a group, ragged l
+    (1, 1, 256, 8, 64, 1, 128),    # one chunk of mamba2-370m's shape
+    (2, 1, 70, 4, 3, 4, 5),        # g == h; n, p not multiples of 4
+    (1, 3, 64, 2, 130, 1, 200),    # p past two tiles of 64, n past three
+])
+def test_ssd_kernel_takes_any_state_size(b, c, l, h, p, g, n, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(l * 10 + n + p)
+    args = ssd_group_args(gen, b, c, l, h, p, g, n)
+    ssd_close_and_f64(args, ssd_intra_chunk(*args))
+
+
+@pytest.mark.parametrize("h,g", [(8, 1), (8, 2), (6, 3)])
+def test_ssd_kernel_per_group_equals_head_broadcast(h, g, cuda):
+    """B and C once per group give the bits of the same B and C repeated
+    per head (g == h): every output sums the same products in the same
+    order, whichever block of heads forms C Bᵀ."""
+    gen = torch.Generator(device=cuda).manual_seed(h + g)
+    xdt, dA, B, C = ssd_group_args(gen, 2, 3, 96, h, 64, g, 128)
+    got = ssd_intra_chunk(xdt, dA, B, C)
+    rep = [t.repeat_interleave(h // g, dim=3).contiguous() for t in (B, C)]
+    want = ssd_intra_chunk(xdt, dA, *rep)
+    for a, w in zip(got, want, strict=True):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "gemma-2b"])
