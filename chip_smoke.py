@@ -24,6 +24,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
              stacked fold bit for bit, one launch up to 64 trees;
              ``ewc_update``'s bits on two runs (T not a multiple of 4,
              views off 16-byte alignment) and one device kernel a call;
+             ``dp_clip_noise``'s bits on two runs on both routes (a
+             cluster at T 141,953, a cooperative grid at (1<<20)+3) and on
+             a view off alignment, and one device kernel a call;
              ssd_chunk with per-group B and C at two groups, n 160, p 80
              (chunks of 16 and 256) against its plain version and f64;
              local_attn at head dims 80 (f32, bf16) and 192 (bf16),
@@ -52,7 +55,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
              launches as on the main path, every client's
              epsilon equal to the closed form, the non-federated Table II
              columns inside the bounds.
-6. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
+6. threaded — the threaded runtime (``FedCCLConfig(runtime="threaded")``)
+             at the main path's full width, fleet, rounds and epochs, twice,
+             counters reset before each run: with batched aggregation (a
+             server drain thread; every model's round and samples exact,
+             no queue left, no drain timeout; one more round profiled) and
+             with secure aggregation and DP (barrier rounds; secure rounds,
+             DP releases = ``dp_clip_noise`` launches, epsilon the closed
+             form); the LSTM on the sequence route only.
+7. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
              tokens) and gemma-2b (2 x 2048) at full width and depth in
              bf16, counters reset before and read after each run: exactly
              one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
@@ -65,18 +76,24 @@ Phases, each fatal on failure (non-zero exit, no final line):
              (examples/serve_batched.py's mix), no kernel launched, and
              ragged equal to independent decoding (held in f32, reported
              in bf16).
-7. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
+8. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
              from the same initial weights, without privacy, with DP and
              secure aggregation, and with DP alone (at a smaller clip, see
              AGREE_DP_CLIP): Table II must agree;
              DP alone at the privacy path's clip, where Table II is chaotic:
              every release of the CUDA run against the plain version on the
              same inputs;
-             and a secure run with dropouts on both, which must recover
-             dropped clients and end with the same parameters.
+             a secure run with dropouts on both, which must recover
+             dropped clients and end with the same parameters;
+             and the threaded runtime's secure run with DP clipping (noise
+             0): Table II must agree, stats and budgets be equal.
              The LLM path: decode by replay against the kernel forward (f32,
              full width, 4 layers, T 64), and the CUDA loss against the CPU
              loss from the same weights (f32, full width, 2 layers).
+9. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
+             subprocess on the card: exit 0, Table II printed and, in its
+             ``solar_report.json``, finite and inside the system test's
+             bounds.
 
 The script re-executes itself once with ``PYTHONHASHSEED=0``: the solar
 fleet's weather is seeded with ``hash(site_id)`` (``data/solar.py``, as in
@@ -149,8 +166,8 @@ KERNEL_SYMBOLS = {
     "lstm_cell": ("lstm_cell_kernel", "lstm_seq_fwd_kernel",
                   "lstm_seq_bwd_kernel"),
     "ewc_update": ("ewc_update_kernel",),
-    "dp_clip_noise": ("dp_sumsq_kernel", "dp_finish_kernel",
-                      "dp_apply_kernel"),
+    "dp_clip_noise": ("dp_clip_noise_cluster_kernel",
+                      "dp_clip_noise_wide_kernel"),
     "ssd_chunk": ("ssd_chunk_tf32_kernel",),
     "local_attn": ("local_attn_tc_kernel", "local_attn_kernel"),
 }
@@ -704,20 +721,57 @@ def check_dp(dev, gen):
         d[t // 2] = float("nan")        # one NaN: every output NaN, as in JAX
         require(ops.privatize_flat(d, noise, 1.0, 0.5).isnan().all().item(),
                 "dp_clip_noise drops a NaN of the delta")
+    # two runs give the same bits on both routes (the summation order is a
+    # function of T alone), also on a view 4 bytes past 16-byte alignment
+    for t, offset in ((SOLAR_PARAMS, 0), ((1 << 20) + 3, 0),
+                      (SOLAR_PARAMS, 1)):
+        d = torch.randn(t + offset, generator=gen, device=dev)[offset:]
+        noise = torch.randn(t + offset, generator=gen, device=dev)[offset:]
+        first = ops.privatize_flat(d, noise, 5.0, 0.3)
+        again = ops.privatize_flat(d, noise, 5.0, 0.3)
+        require(torch.equal(first, again), f"dp_clip_noise T={t} offset "
+                                           f"{offset}: two runs differ")
+        err = max(err, (first - dp_clip_noise_ref(d, noise, 5.0, 0.3))
+                  .abs().max().item())
+    print("[kernels] dp_clip_noise: two runs bit-equal at T 141,953 "
+          f"(route {ops.route(SOLAR_PARAMS)}, cluster of "
+          f"{ops.cluster_shape(SOLAR_PARAMS)[0]} CTAs, "
+          f"{ops.cluster_shape(SOLAR_PARAMS)[1]} values a thread) and "
+          f"{(1 << 20) + 3} (route {ops.route((1 << 20) + 3)}), and on a "
+          "view 4 bytes past 16-byte alignment")
     require(err <= 1e-5, f"dp_clip_noise max abs err {err} > 1e-5")
     t = SOLAR_PARAMS
     d = torch.randn(t, generator=gen, device=dev) * 0.05
     noise = torch.randn(t, generator=gen, device=dev)
+    own, events = device_events(lambda: ops.privatize_flat(d, noise, 5.0, 0.3),
+                                KERNEL_SYMBOLS["dp_clip_noise"], iters=20,
+                                warmup=1)
+    own = len(own)
+    print(f"[kernels] dp_clip_noise: {own} kernel launches in 20 calls "
+          f"({events} device events in all)")
+    require(own == 20 and events == 20, f"dp_clip_noise: {own} of its "
+            f"kernels and {events} device events in 20 calls, expected one "
+            "each")
+    wide = (1 << 20) + 3
+    dw = torch.randn(wide, generator=gen, device=dev) * 0.05
+    nw = torch.randn(wide, generator=gen, device=dev)
     # the function reads d and the noise once and writes out once; 2T ops
     # for the norm, 3T for the output
     bms, by = bound(12 * t, 5 * t)
     return {"max_abs_err": err, "shape": f"T={t}, clip 5.0, m 0.3",
+            "route": ops.route(t),
             "ms": cuda_ms(lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
             "device_ms": device_ms(
                 "dp_clip_noise",
                 lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
             "plain_ms": cuda_ms(lambda: dp_clip_noise_ref(d, noise, 5.0, 0.3)),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "launches_a_call": own / 20,
+            "wide_shape": f"T={wide}", "wide_route": ops.route(wide),
+            "wide_ms": cuda_ms(lambda: ops.privatize_flat(dw, nw, 5.0, 0.3)),
+            "wide_device_ms": device_ms(
+                "dp_clip_noise", lambda: ops.privatize_flat(dw, nw, 5.0, 0.3)),
+            "wide_bound_ms": bound(12 * wide, 5 * wide)[0]}
 
 
 def rel_err(got, want, rtol=KERNEL_RTOL) -> tuple[float, float]:
@@ -1133,51 +1187,72 @@ def print_report(report, tag="main"):
     print(f"[{tag}] async_stats {json.dumps(report['async_stats'])}")
 
 
+class counting_calls:
+    """Count the solar path's own calls while the block runs: forecaster
+    forwards, SGD steps (``solar_loss`` calls, each one backward) and
+    anchored steps (``ewc_adjusted_gradient`` calls), under a lock, since
+    the threaded runtime makes them from several threads at once."""
+
+    def __enter__(self):
+        import threading
+        import repro_torch.training.fed_solar as fed_solar
+        from repro_torch.models.lstm import SolarForecaster
+
+        self.calls = {"forwards": 0, "sgd_steps": 0, "anchored_steps": 0}
+        lock = threading.Lock()
+        self._saved = (SolarForecaster.forward, fed_solar.solar_loss,
+                       fed_solar.ewc_adjusted_gradient)
+        forward, loss, anchored = self._saved
+
+        def counted(key, fn):
+            def call(*a, **kw):
+                with lock:
+                    self.calls[key] += 1
+                return fn(*a, **kw)
+            return call
+
+        SolarForecaster.forward = counted("forwards", forward)
+        fed_solar.solar_loss = counted("sgd_steps", loss)
+        fed_solar.ewc_adjusted_gradient = counted("anchored_steps", anchored)
+        return self.calls
+
+    def __exit__(self, *exc):
+        import repro_torch.training.fed_solar as fed_solar
+        from repro_torch.models.lstm import SolarForecaster
+
+        (SolarForecaster.forward, fed_solar.solar_loss,
+         fed_solar.ewc_adjusted_gradient) = self._saved
+        return False
+
+
+def route_counts(calls) -> dict:
+    """The route counters (sequence forwards and reverse scans, folds by
+    leaves) beside the path's own calls."""
+    from repro_torch.kernels.fedavg_agg import ops as agg_ops
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+
+    return {"lstm_seq_fwd": lstm_ops.launches_seq_fwd,
+            "lstm_seq_bwd": lstm_ops.launches_seq_bwd,
+            "fedavg_agg_leaves": agg_ops.launches_leaves, **calls}
+
+
 def counted_run(dev, cfg):
     """``run_fedccl_solar(**cfg)`` on ``dev`` with the launch counters set
     to 0 just before and read just after; returns (report, counts, routes,
-    wall).  ``routes`` holds the route counters (sequence forwards and
-    reverse scans, folds by leaves) and the path's own calls: forecaster
-    forwards and SGD steps (``solar_loss`` calls, each one backward)."""
+    wall).  ``routes`` holds the route counters and the path's own calls
+    (``counting_calls``)."""
     import torch
     import repro_torch.training.fed_solar as fed_solar
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.fedavg_agg import ops as agg_ops
-    from repro_torch.kernels.lstm_cell import ops as lstm_ops
-    from repro_torch.models.lstm import SolarForecaster
 
-    calls = {"forwards": 0, "sgd_steps": 0, "anchored_steps": 0}
-    forward, loss = SolarForecaster.forward, fed_solar.solar_loss
-    anchored = fed_solar.ewc_adjusted_gradient
-
-    def counted_forward(self, *a, **kw):
-        calls["forwards"] += 1
-        return forward(self, *a, **kw)
-
-    def counted_loss(*a, **kw):
-        calls["sgd_steps"] += 1
-        return loss(*a, **kw)
-
-    def counted_anchor(*a, **kw):
-        calls["anchored_steps"] += 1
-        return anchored(*a, **kw)
-    SolarForecaster.forward, fed_solar.solar_loss = counted_forward, \
-        counted_loss
-    fed_solar.ewc_adjusted_gradient = counted_anchor
-    try:
+    with counting_calls() as calls:
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
         report = fed_solar.run_fedccl_solar(device=dev, **cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        SolarForecaster.forward, fed_solar.solar_loss = forward, loss
-        fed_solar.ewc_adjusted_gradient = anchored
-    routes = {"lstm_seq_fwd": lstm_ops.launches_seq_fwd,
-              "lstm_seq_bwd": lstm_ops.launches_seq_bwd,
-              "fedavg_agg_leaves": agg_ops.launches_leaves, **calls}
-    return report, launch_counts(), routes, wall
+    return report, launch_counts(), route_counts(calls), wall
 
 
 def require_sequence_route(counts, routes, what):
@@ -1356,6 +1431,149 @@ def phase_privacy(dev) -> dict:
 
 
 # ------------------------------------------------------------------ phase 6
+def threaded_fed(dev, hidden, **extra):
+    """``FedCCL(FedCCLConfig(runtime="threaded", ...))`` over the
+    example's default fleet (MAIN_PATH: 6 sites of a fleet of 6 + 2, 40
+    days, 3 epochs) with ``run_fedccl_solar``'s clustering spaces, train_fn
+    and site speeds, at hidden ``hidden``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.fedccl import FedCCL, FedCCLConfig
+    from repro_torch.core.protocol import ClientSpec
+    from repro_torch.data.solar import generate_fleet
+    from repro_torch.data.windows import make_windows, split_windows
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.training.fed_solar import (
+        SOLAR_SPACES,
+        make_solar_fns,
+        make_train_fn,
+    )
+
+    seed = MAIN_PATH["seed"]
+    rng = np.random.default_rng(seed)
+    fleet = generate_fleet(
+        n_sites=MAIN_PATH["n_sites"] + MAIN_PATH["n_independent"],
+        n_days=MAIN_PATH["n_days"], seed=seed)[:MAIN_PATH["n_sites"]]
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=hidden))
+    init = fc.init(torch.Generator().manual_seed(seed), dev)
+    train_fn = make_train_fn(make_solar_fns(fc, lr=1e-2)[0],
+                             epochs=MAIN_PATH["epochs"])
+    fed = FedCCL(FedCCLConfig(spaces=SOLAR_SPACES, ewc_lambda=0.05,
+                              seed=seed, runtime="threaded", **extra),
+                 init, train_fn, device=dev)
+    fed.setup([ClientSpec(s.site_id, s.static_features,
+                          split_windows(make_windows(d), train_frac=0.8)[0],
+                          speed=float(rng.uniform(0.5, 2.0)))
+               for s, d in fleet])
+    return fed
+
+
+def counted_threaded(fed, rounds):
+    """``fed.run(rounds)`` with the launch counters set to 0 just before and
+    read just after; returns (stats, counts, routes, wall)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    with counting_calls() as calls:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = fed.run(rounds=rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return stats, launch_counts(), route_counts(calls), wall
+
+
+def require_exact_accounting(fed, stats, rounds, what):
+    """Every client's updates folded once: ``updates`` = clients x rounds x
+    (its clusters + 1); each model's round and samples_learned the sums
+    over its members' updates; no queue left, no drain timed out."""
+    epochs = MAIN_PATH["epochs"]
+    want = {("global", None): [0, 0]}
+    for c in fed.clients:
+        n = len(c.spec.dataset["target"]) * epochs      # train_fn's samples
+        for key in [None, *c.cluster_keys]:
+            slot = want.setdefault(("global" if key is None else "cluster",
+                                    key), [0, 0])
+            slot[0] += rounds
+            slot[1] += rounds * n
+    updates = sum(r for r, _ in want.values())
+    require(stats["updates"] == updates, f"{what}: {stats['updates']} "
+                                         f"updates, expected {updates}")
+    require(stats["drain_timeouts"] == 0, f"{what}: a drain timed out")
+    for (level, key), (r, n) in want.items():
+        meta = fed.store.meta(level, key)
+        require((meta.round, meta.samples_learned) == (r, n),
+                f"{what}: {level} {key} round {meta.round} samples "
+                f"{meta.samples_learned}, expected {r} and {n}")
+        require(fed.store.pending_depth(level, key) == 0,
+                f"{what}: {level} {key} has queued updates left")
+    return updates
+
+
+def phase_threaded(dev) -> tuple[dict, dict]:
+    """The threaded runtime at full width, twice, counters set to 0 before
+    each run: batched aggregation (a server drain thread), then secure
+    aggregation with DP (barrier rounds).  Returns the two runs' launches
+    and routes summed."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    counts, routes = {}, {}
+
+    fed = threaded_fed(dev, hidden, batch_aggregation=True, max_coalesce=8)
+    stats, c1, r1, wall = counted_threaded(fed, rounds)
+    print(f"[threaded] batched (max_coalesce 8), {len(fed.clients)} client "
+          f"threads, hidden {hidden}, {rounds} rounds of "
+          f"{MAIN_PATH['epochs']} epochs: {wall:.1f} s; agg_stats "
+          f"{json.dumps(stats)}; coalesce_factor "
+          f"{stats['coalesce_factor']}")
+    print(f"[threaded] batched: launches {json.dumps(c1)}; routes and calls "
+          f"{json.dumps(r1)}")
+    updates = require_exact_accounting(fed, stats, rounds, "threaded batched")
+    require_sequence_route(c1, r1, "threaded batched")
+    print(f"[threaded] batched: {updates} updates, every model's round and "
+          "samples exact, no queue left, 0 drain timeouts")
+    device_profile("threaded batched, one more round",
+                   lambda: fed.run(rounds=1))
+
+    fed = threaded_fed(dev, hidden, **PRIVACY)
+    stats, c2, r2, wall = counted_threaded(fed, rounds)
+    print(f"[threaded] secure + DP ({json.dumps(PRIVACY)}): {wall:.1f} s; "
+          f"agg_stats {json.dumps(stats)}")
+    print(f"[threaded] secure + DP: launches {json.dumps(c2)}; routes and "
+          f"calls {json.dumps(r2)}")
+    require_exact_accounting(fed, stats, rounds, "threaded secure")
+    require_sequence_route(c2, r2, "threaded secure")
+    want_rounds = rounds * (1 + len(fed.store.keys()))
+    require(stats["secure_rounds"] == want_rounds,
+            f"threaded secure: {stats['secure_rounds']} secure rounds, "
+            f"expected {want_rounds}")
+    require(c2["fedavg_agg"] == stats["secure_rounds"],
+            f"threaded secure: {c2['fedavg_agg']} folds for "
+            f"{stats['secure_rounds']} secure rounds")
+    priv = fed.privacy_report()
+    releases = sum(r["steps"] for r in priv["per_client"].values())
+    require(c2["dp_clip_noise"] == releases == stats["updates"],
+            f"threaded secure: {c2['dp_clip_noise']} dp_clip_noise launches, "
+            f"{releases} DP releases, {stats['updates']} updates")
+    sigma = PRIVACY["dp_noise_multiplier"]
+    for cid, row in priv["per_client"].items():
+        want = closed_form_epsilon(row["steps"], sigma, TARGET_DELTA)
+        require(math.isclose(row["epsilon"], want, rel_tol=1e-12),
+                f"threaded secure: client {cid} epsilon {row['epsilon']} != "
+                f"{want}")
+    print(f"[threaded] secure + DP: {want_rounds} secure rounds, "
+          f"{releases} DP releases = dp_clip_noise launches, epsilon the "
+          f"closed form; card: {card_line()}")
+    for c, r in ((c1, r1), (c2, r2)):
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        for name, n in r.items():
+            routes[name] = routes.get(name, 0) + n
+    return counts, routes
+
+
+# ------------------------------------------------------------------ phase 7
 def llm_model(arch, dev, dtype=None, depth=None, generator=None):
     """(cfg, model, params) of ``arch`` at full width, weights random from
     the seed: drawn on the card (a CUDA generator) unless ``generator``."""
@@ -1544,7 +1762,7 @@ def phase_llm_agree(dev):
         torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 8
 def table_gap(a, b, same_nan=True) -> float:
     """Largest Table II / §IV.E gap in pp over the entries that are NaN in
     neither run; with ``same_nan`` NaN must sit in the same places."""
@@ -1696,6 +1914,79 @@ def phase_agree(dev):
         require(gap <= AGREE_PP, f"CUDA and CPU runs differ by {gap} pp")
     check_dp_releases(dev, init)
     check_dropout(dev)
+    check_threaded_secure(dev, init)
+
+
+def without_worst_client(privacy) -> dict:
+    """The privacy report without per_model's ``worst_client``: every
+    client makes the same releases into a model, so the epsilons tie, and
+    the accountant names the client whose release it recorded last, which
+    the threads' order decides."""
+    out = dict(privacy)
+    out["per_model"] = {k: {f: v for f, v in row.items()
+                            if f != "worst_client"}
+                        for k, row in privacy.get("per_model", {}).items()}
+    return out
+
+
+def check_threaded_secure(dev, init):
+    """The threaded runtime's secure run with DP clipping (noise 0) at
+    AGREE_RUN's size, on CUDA and on the CPU from one init.  A secure round
+    folds a fixed member set, so the runs differ only in summation order."""
+    from repro_torch.training.fed_solar import run_fedccl_solar
+
+    cfg = dict(AGREE_RUN, dp_clip=PRIVACY["dp_clip"], dp_noise_multiplier=0.0,
+               secure_agg=True)
+    gpu = run_fedccl_solar(device=dev, init_params=init, runtime="threaded",
+                           **cfg)
+    cpu = run_fedccl_solar(device="cpu", init_params=init,
+                           runtime="threaded", **cfg)
+    for part in ("clusters", "async_stats"):
+        require(gpu[part] == cpu[part], f"threaded secure: {part} differ")
+    require(without_worst_client(gpu["privacy"])
+            == without_worst_client(cpu["privacy"]),
+            "threaded secure: privacy reports differ")
+    require(gpu["async_stats"]["secure_rounds"] > 0,
+            "threaded secure: no secure round folded")
+    gap = table_gap(gpu, cpu)
+    print(f"[agree] threaded {cfg}: CUDA vs CPU, max Table II / §IV.E gap "
+          f"{gap:.3e} pp (limit {AGREE_PP}); agg_stats "
+          f"{json.dumps(gpu['async_stats'])} equal")
+    require(gap <= AGREE_PP, f"threaded secure: CUDA and CPU runs differ by "
+                             f"{gap} pp")
+
+
+# ------------------------------------------------------------------ phase 9
+def phase_example():
+    """``examples/solar_forecasting_torch.py`` as a user runs it, on the
+    card: it must exit 0, print Table II and write a report whose Table II
+    is finite and inside the system test's bounds."""
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO / "src"), *filter(None, [env.get("PYTHONPATH")])])
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "examples" /
+                                 "solar_forecasting_torch.py"),
+             "--out", out], capture_output=True, text=True, env=env,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, "examples/solar_forecasting_torch.py "
+                f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+        require("=== Table II analog ===" in proc.stdout,
+                "the example printed no Table II")
+        report = json.loads((Path(out) / "solar_report.json").read_text())
+    for line in proc.stdout.splitlines():
+        if "power" in line:
+            print(f"[example] {line}")
+    check_table({"table2": report["table2"], "independent": {}}, "example")
+    print(f"[example] examples/solar_forecasting_torch.py --out <tmp> on the "
+          f"card: exit 0 in {wall:.1f} s (process start included), "
+          f"config {json.dumps(report['config'])}, Table II inside the "
+          "bounds")
 
 
 def main() -> int:
@@ -1723,9 +2014,11 @@ def main() -> int:
         counts["main"], routes["main"] = phase_main(dev)
         phase_profile(dev)
         counts["privacy"], routes["privacy"] = phase_privacy(dev)
+        counts["threaded"], routes["threaded"] = phase_threaded(dev)
         counts["llm"] = phase_llm(dev)
         phase_agree(dev)
         phase_llm_agree(dev)
+        phase_example()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

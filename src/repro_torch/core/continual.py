@@ -57,6 +57,15 @@ def ewc_penalty_and_grad(params, state: EWCState):
     return ewc_penalty(params, state), grads
 
 
+def fisher_diag_update(fisher, grads, decay: float = 0.95):
+    """Online diagonal-Fisher estimate from task gradients (EMA of g^2), in
+    f32; ``fisher=None`` returns the squares."""
+    sq = tree_map(lambda g: torch.square(g.to(torch.float32)), grads)
+    if fisher is None:
+        return sq
+    return tree_map(lambda f, s: decay * f + (1 - decay) * s, fisher, sq)
+
+
 def make_anchor(params, fisher=None, lam: float = 1.0) -> EWCState:
     # No copy: the port never updates a parameter tensor in place (every
     # SGD step, fold and anchor builds new tensors), so holding the

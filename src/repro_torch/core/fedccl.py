@@ -3,15 +3,15 @@ the runtime into one object — the library's main entry point.
 
     fed = FedCCL(FedCCLConfig(...), init_params, train_fn, device="cuda")
     fed.setup(client_specs)          # pre-training DBSCAN clustering
-    fed.run(rounds=5)                # async training under the sim runtime
+    fed.run(rounds=5)                # async training (sim or threaded)
     keys, params = fed.join(new_spec)  # Predict & Evolve for a new client
 
 The port runs the single-lock ``ModelStore`` under the deterministic sim
-runtime, with the privacy layer (DP privatization, pairwise-mask secure
-aggregation, RDP accounting; ``repro_torch.privacy``).  The other
-topologies and runtimes and the telemetry layer of the reference arrive
-with later slices (see ROADMAP.md); asking for them raises
-``NotImplementedError``.
+runtime or the threaded one (client threads against the locked store), with
+the privacy layer (DP privatization, pairwise-mask secure aggregation, RDP
+accounting; ``repro_torch.privacy``).  The other topologies and the
+telemetry layer of the reference arrive with later slices (see
+ROADMAP.md); asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from repro_torch.core.clustering import IncrementalDBSCAN
 from repro_torch.core.predict_evolve import ClusterSpace, PredictEvolve
 from repro_torch.core.protocol import Client, ClientSpec
 from repro_torch.core.runtime_sim import AsyncSimRuntime
+from repro_torch.core.runtime_threaded import AsyncThreadedRuntime
 from repro_torch.core.store import ModelStore
 from repro_torch.privacy.accountant import RDPAccountant
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
@@ -47,11 +48,15 @@ class FedCCLConfig:
         ClusterSpaceConfig("ori", eps=25.0, min_samples=3, metric="cyclic"),
     )
     ewc_lambda: float = 0.0          # continual-learning anchor strength
-    runtime: str = "sim"             # "sim" ("threaded": later slice)
+    runtime: str = "sim"             # "sim" | "threaded"
     seed: int = 0
     dropout_prob: float = 0.0        # client-unavailability resilience knob
     batch_aggregation: bool = False  # coalescing server path (queue + drain)
     max_coalesce: int = 16           # max queued updates folded per drain
+    # bounded drain deadline: drain-worker joins in the threaded runtime;
+    # expiries surface as agg_stats()["drain_timeouts"] instead of silent
+    # partial drains
+    drain_timeout_s: float = 30.0
     # ---- privacy subsystem (repro_torch.privacy)
     dp_clip: float | None = None     # L2 clip of update deltas; None = DP off
     dp_noise_multiplier: float = 1.0 # noise std = multiplier * dp_clip
@@ -72,8 +77,6 @@ class FedCCLConfig:
 # (what was asked for, is it set, the slice of ROADMAP.md's module queue
 # that brings it)
 _LATER_SLICES = (
-    ("runtime='threaded'", lambda c: c.runtime == "threaded",
-     "threaded runtime"),
     ("server_shards", lambda c: c.server_shards > 0,
      "scale-out server tiers"),
     ("server_processes", lambda c: c.server_processes > 0,
@@ -95,7 +98,7 @@ class FedCCL:
                     f"{what} is not ported to repro_torch yet; it arrives "
                     f"with the '{slice_name}' slice of ROADMAP.md's module "
                     "queue")
-        if cfg.runtime != "sim":
+        if cfg.runtime not in ("sim", "threaded"):
             raise ValueError(f"unknown runtime {cfg.runtime!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -111,7 +114,8 @@ class FedCCL:
         self.store = ModelStore(init_params,
                                 batch_aggregation=cfg.batch_aggregation,
                                 max_coalesce=cfg.max_coalesce,
-                                masker=self.masker)
+                                masker=self.masker,
+                                drain_timeout_s=cfg.drain_timeout_s)
         self.spaces = [
             ClusterSpace(s.name, IncrementalDBSCAN(s.eps, s.min_samples, s.metric))
             for s in cfg.spaces]
@@ -147,6 +151,11 @@ class FedCCL:
 
     # ------------------------------------------------------------------- run
     def run(self, rounds: int = 1):
+        if self.cfg.runtime == "threaded":
+            rt = AsyncThreadedRuntime(self.clients, self.store, rounds)
+            rt.run()
+            self._runtime = rt
+            return self.store.agg_stats()
         rt = AsyncSimRuntime(self.clients, self.store, seed=self.cfg.seed,
                              dropout_prob=self.cfg.dropout_prob)
         rt.run(rounds)

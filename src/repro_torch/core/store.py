@@ -292,13 +292,18 @@ class _StoreBase(_RegistryBase):
     def __init__(self, init_params, cluster_keys=(),
                  agg_cfg: AggregationConfig = AggregationConfig(),
                  batch_aggregation: bool = False, max_coalesce: int = 16,
-                 masker=None):
+                 masker=None, drain_timeout_s: float = 30.0):
         super().__init__(init_params, cluster_keys)
         self.agg_cfg = agg_cfg
         self.batch_aggregation = batch_aggregation
         self.max_coalesce = max(int(max_coalesce), 1)
+        # bounded-drain deadline (FedCCLConfig.drain_timeout_s): drain-worker
+        # joins in the threaded runtime; expiries are counted
+        # (``drain_timeouts`` in agg_stats()) instead of silently returning
+        # partial drains
+        self.drain_timeout_s = float(drain_timeout_s)
         # secure aggregation: a repro_torch.privacy.secure_agg.PairwiseMasker
-        # (its presence switches the sim runtime to full-round secure drains)
+        # (its presence switches both runtimes to full-round secure drains)
         self.masker = masker
         # monotone round-id base carried across runtime runs — pair masks are
         # derived from (pair, round_id, model_key), so round ids must never
@@ -314,6 +319,7 @@ class _StoreBase(_RegistryBase):
         self.n_drained = 0                     # updates consumed by drains
         self.n_secure_rounds = 0               # secure drains performed
         self.n_secure_recoveries = 0           # dropped clients recovered
+        self.n_drain_timeouts = 0              # bounded-drain deadline misses
 
     # ----------------------------------------------------------- flavor hooks
     def _submit_stats(self, key: str) -> _SubmitStats:
@@ -334,6 +340,11 @@ class _StoreBase(_RegistryBase):
             if secure:
                 self.n_secure_rounds += 1
                 self.n_secure_recoveries += recovered
+
+    def _count_drain_timeout(self):
+        """Record a bounded-drain deadline miss."""
+        with self._drain_lock:
+            self.n_drain_timeouts += 1
 
     # ---------------------------------- aggregate counters (drain + submit)
     # Each property takes `_drain_lock` for the drain half and reads every
@@ -499,9 +510,10 @@ class ModelStore(_StoreBase):
     def __init__(self, init_params, cluster_keys=(),
                  agg_cfg: AggregationConfig = AggregationConfig(),
                  batch_aggregation: bool = False, max_coalesce: int = 16,
-                 masker=None):
+                 masker=None, drain_timeout_s: float = 30.0):
         super().__init__(init_params, cluster_keys, agg_cfg,
-                         batch_aggregation, max_coalesce, masker)
+                         batch_aggregation, max_coalesce, masker,
+                         drain_timeout_s)
         self._submit = _SubmitStats()
 
     def _submit_stats(self, key: str) -> _SubmitStats:
@@ -532,6 +544,7 @@ class ModelStore(_StoreBase):
                 else 0.0
             secure_rounds = self.n_secure_rounds
             secure_recoveries = self.n_secure_recoveries
+            drain_timeouts = self.n_drain_timeouts
         direct, fast, lock_waits, enqueued, max_depth = self._submit.snapshot()
         updates = drain_updates + direct
         out = {
@@ -542,8 +555,7 @@ class ModelStore(_StoreBase):
             "drain_batches": drain_batches,
             "max_queue_depth": max_depth,
             "coalesce_factor": coalesce,
-            # the single-lock sim topology has no bounded drains to time out
-            "drain_timeouts": 0,
+            "drain_timeouts": drain_timeouts,
         }
         if self.masker is not None:
             out["secure_rounds"] = secure_rounds

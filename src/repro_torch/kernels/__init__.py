@@ -4,8 +4,9 @@ Each kernel package has two modules:
   ops.py — the public wrapper: it checks its tensors, launches the CUDA
            kernel (``csrc/<name>.cu``) for CUDA tensors and counts the
            launch in its ``launches`` integer (and, where the wrapper has
-           several routes, in the route's own ``launches_<route>``), and
-           runs the plain version for CPU tensors
+           several routes, in the route's own ``launches_<route>``)
+           through ``build.count``, under a lock, and runs the plain
+           version for CPU tensors
   ref.py — the plain PyTorch version the kernel is checked against
 
 The device decides the route; there is no switch and no fallback.  The

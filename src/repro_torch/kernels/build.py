@@ -7,6 +7,11 @@ one ``nvcc`` process per source started together, and is cached under
 ``build/repro_torch_kernels/`` at the repository root by a hash of the
 sources and flags.  A missing ``nvcc`` or a failed build raises: there is
 no fallback to another implementation.
+
+Thread safety: client threads of the threaded runtime launch kernels
+concurrently.  ``library()`` builds and loads under ``_load_lock`` (one
+thread builds, the others wait for it); ``count`` and ``workspace`` touch
+the wrappers' launch counters and kept scratch under ``_state_lock``.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -47,6 +54,8 @@ SIGNATURES = {
 }
 
 _lib = None
+_load_lock = threading.Lock()    # the library's build and load
+_state_lock = threading.Lock()   # launch counters and kept workspaces
 
 
 def find_nvcc() -> str:
@@ -120,18 +129,49 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use, by one thread)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.kernels_error_string.argtypes = [ctypes.c_int]
-        lib.kernels_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _load_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.kernels_error_string.argtypes = [ctypes.c_int]
+            lib.kernels_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
+
+
+def count(module: str, *counters: str) -> None:
+    """Add one to each launch counter ``counters`` (``launches``,
+    ``launches_leaves``, ...) of the wrapper module named ``module``.  A
+    bare ``launches += 1`` is a load, an add and a store that a thread
+    switch can split; this takes the lock."""
+    mod = sys.modules[module]
+    with _state_lock:
+        for name in counters:
+            setattr(mod, name, getattr(mod, name) + 1)
+
+
+def workspace(cache: dict, device: torch.device, stream: int,
+              n: int) -> torch.Tensor:
+    """A wrapper's kept scratch of ``n`` zeroed floats on ``device`` for
+    ``stream``, made at its first use and kept in ``cache`` under
+    ``(device.index, stream)``: kernels on one stream run in order, so
+    they can share it; two streams never do."""
+    key = (device.index, stream)
+    work = cache.get(key)
+    if work is None:
+        with _state_lock:
+            work = cache.get(key)
+            if work is None:
+                work = cache[key] = torch.zeros(n, dtype=torch.float32,
+                                                device=device)
+    return work
 
 
 def check(status: int, name: str) -> None:

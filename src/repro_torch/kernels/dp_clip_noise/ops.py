@@ -1,9 +1,15 @@
 """Public wrapper of the DP clip + noise release: CUDA tensors launch
-``csrc/dp_clip_noise.cu``, CPU tensors run ``ref.dp_clip_noise_ref``.
+``csrc/dp_clip_noise.cu`` (one launch a call), CPU tensors run
+``ref.dp_clip_noise_ref``.
 
 This is the client-side privatization step: ``repro_torch.privacy.dp``
 flattens an update delta, privatizes it here with caller-supplied
 standard-normal noise, and unflattens it back into the parameter tree.
+
+Up to ``CLUSTER_CAP`` values the kernel is one thread-block cluster and
+needs no scratch; above it, one cooperative launch whose partials, ticket
+and epoch flag live in a scratch zeroed once per (device, stream) and kept.
+``route`` and ``cluster_shape`` mirror the C launcher's choice.
 """
 
 from __future__ import annotations
@@ -13,8 +19,27 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.dp_clip_noise.ref import dp_clip_noise_ref
 
-MAX_BLOCKS = 1024    # DP_MAX_BLOCKS in csrc/dp_clip_noise.cu (partials)
+CTA_THREADS, MAX_CLUSTER, MAX_PER_THREAD = 1024, 16, 12   # DP_* in the .cu
+CLUSTER_CAP = CTA_THREADS * MAX_CLUSTER * MAX_PER_THREAD  # 196,608
+WIDE_MAX_BLOCKS = 256          # DP_WIDE_MAX_BLOCKS: partials of the wide route
 launches = 0
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def route(t: int) -> str:
+    """The kernel's route for ``t`` values: "cluster" or "wide"."""
+    return "cluster" if t <= CLUSTER_CAP else "wide"
+
+
+def cluster_shape(t: int) -> tuple[int, int]:
+    """(CTAs of the cluster, values a thread) of the cluster route: the
+    CTAs a power of two up to 16, the values at most 12, both functions of
+    ``t`` alone."""
+    rows = -(-t // CTA_THREADS)
+    n = 1
+    while n < MAX_CLUSTER and n < rows:
+        n *= 2
+    return n, -(-rows // n)
 
 
 def privatize_flat(delta: torch.Tensor, noise: torch.Tensor, clip,
@@ -25,7 +50,6 @@ def privatize_flat(delta: torch.Tensor, noise: torch.Tensor, clip,
     nothing waits for the card."""
     if not build.on_cuda("dp_clip_noise", delta, noise):
         return dp_clip_noise_ref(delta, noise, clip, noise_multiplier)
-    global launches
     build.require_f32_contiguous("dp_clip_noise", delta=delta, noise=noise)
     if delta.dim() != 1 or noise.shape != delta.shape:
         raise ValueError(f"dp_clip_noise: delta {tuple(delta.shape)} and "
@@ -35,12 +59,12 @@ def privatize_flat(delta: torch.Tensor, noise: torch.Tensor, clip,
     t = delta.numel()
     if t == 0:
         return out
-    scratch = torch.empty(MAX_BLOCKS + 2, dtype=torch.float32,
-                          device=delta.device)
+    stream = build.stream_handle(delta.device)
+    work = (None if t <= CLUSTER_CAP else build.workspace(
+        _workspaces, delta.device, stream, WIDE_MAX_BLOCKS + 3).data_ptr())
     status = build.library().dp_clip_noise_launch(
         delta.data_ptr(), noise.data_ptr(), float(clip),
-        float(noise_multiplier), t, out.data_ptr(), scratch.data_ptr(),
-        build.stream_handle(delta.device))
+        float(noise_multiplier), t, out.data_ptr(), work, stream)
     build.check(status, "dp_clip_noise")
-    launches += 1
+    build.count(__name__, "launches")
     return out

@@ -22,13 +22,7 @@ _workspaces: dict[tuple[int, int], torch.Tensor] = {}
 def workspace(device: torch.device, stream: int) -> torch.Tensor:
     """The kernel's scratch on ``device`` for ``stream``: MAX_BLOCKS
     partials, then the ticket (four floats, zero bits)."""
-    key = (device.index, stream)
-    work = _workspaces.get(key)
-    if work is None:
-        work = _workspaces[key] = torch.zeros(MAX_BLOCKS + 4,
-                                              dtype=torch.float32,
-                                              device=device)
-    return work
+    return build.workspace(_workspaces, device, stream, MAX_BLOCKS + 4)
 
 
 def ewc_penalty_grad_flat(lam, grads, params, anchor, fisher=None):
@@ -37,7 +31,6 @@ def ewc_penalty_grad_flat(lam, grads, params, anchor, fisher=None):
     tensor, so nothing waits for the card."""
     if not build.on_cuda("ewc_update", grads, params, anchor, fisher):
         return ewc_ref(lam, grads, params, anchor, fisher)
-    global launches
     build.require_f32_contiguous("ewc_update", grads=grads, params=params,
                                  anchor=anchor, fisher=fisher)
     for name, t in (("params", params), ("anchor", anchor),
@@ -58,5 +51,5 @@ def ewc_penalty_grad_flat(lam, grads, params, anchor, fisher=None):
         None if fisher is None else fisher.data_ptr(), t, g_out.data_ptr(),
         workspace(grads.device, stream).data_ptr(), loss.data_ptr(), stream)
     build.check(status, "ewc_update")
-    launches += 1
+    build.count(__name__, "launches")
     return g_out, loss

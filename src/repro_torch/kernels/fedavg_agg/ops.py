@@ -55,14 +55,13 @@ def fold_chunks(stacked: torch.Tensor, ws: list, fold) -> torch.Tensor:
 
 
 def _launch(stacked: torch.Tensor, ws: list) -> torch.Tensor:
-    global launches
     n, t = stacked.shape
     out = torch.empty(t, dtype=torch.float32, device=stacked.device)
     status = build.library().fedavg_agg_launch(
         stacked.data_ptr(), (ctypes.c_float * n)(*ws), n, t, out.data_ptr(),
         build.stream_handle(stacked.device))
     build.check(status, "fedavg_agg")
-    launches += 1
+    build.count(__name__, "launches")
     return out
 
 
@@ -120,7 +119,6 @@ def pack_leaf_folds(ptrs: list, outs: list, lengths: list,
 
 
 def _launch_leaves(fold: dict, device) -> None:
-    global launches, launches_leaves
     lib = build.library()
     if ctypes.sizeof(LeafFold) != lib.fedavg_leaf_fold_size():
         raise RuntimeError("fedavg_agg: LeafFold differs from the kernel's "
@@ -134,8 +132,7 @@ def _launch_leaves(fold: dict, device) -> None:
     status = lib.fedavg_agg_leaves_launch(ctypes.byref(f),
                                           build.stream_handle(device))
     build.check(status, "fedavg_agg_leaves")
-    launches += 1
-    launches_leaves += 1
+    build.count(__name__, "launches", "launches_leaves")
 
 
 def aggregate_leaves(leaves: list, weights: list) -> torch.Tensor:

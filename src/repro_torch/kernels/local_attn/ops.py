@@ -80,7 +80,6 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
 
 
 def _launch_tc(q, k, v, causal, window, scale):
-    global launches, launches_tc
     B, H, S, D = q.shape
     KV, T = k.shape[1], k.shape[2]
     strides = []
@@ -100,8 +99,7 @@ def _launch_tc(q, k, v, causal, window, scale):
         S, T, D, *strides, float(scale), int(bool(causal)), int(window),
         build.stream_handle(q.device))
     build.check(status, "local_attn")
-    launches += 1
-    launches_tc += 1
+    build.count(__name__, "launches", "launches_tc")
     return out
 
 
@@ -112,7 +110,6 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not build.on_cuda("local_attn", q, k, v):
         return local_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    global launches
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("local_attn: q, k, v must be (B, H|KV, S|T, D)")
     B, H, S, D = q.shape
@@ -151,5 +148,5 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         S + pad_q, T + pad_k, T, D, float(scale), int(bool(causal)),
         int(window), _DTYPES[q.dtype], build.stream_handle(q.device))
     build.check(status, "local_attn")
-    launches += 1
+    build.count(__name__, "launches")
     return out[:, :, :S]

@@ -67,7 +67,6 @@ def lstm_step(x, h, c, wx, wh, b):
     (1, 4H) -> (h', c').  Not differentiable; see ``LSTMCellFn``."""
     if not build.on_cuda("lstm_cell", x, h, c, wx, wh, b):
         return lstm_cell_ref(x, h, c, wx, wh, b)
-    global launches
     build.require_f32_contiguous("lstm_cell", x=x, h=h, c=c, wx=wx, wh=wh,
                                  b=b)
     batch, in_dim, hidden = _check_shapes(x, h, c, wx, wh, b)
@@ -80,7 +79,7 @@ def lstm_step(x, h, c, wx, wh, b):
         wh.data_ptr(), b.data_ptr(), batch, in_dim, hidden, h_out.data_ptr(),
         c_out.data_ptr(), build.stream_handle(x.device))
     build.check(status, "lstm_cell")
-    launches += 1
+    build.count(__name__, "launches")
     return h_out, c_out
 
 
@@ -212,7 +211,6 @@ def lstm_seq_fwd(xs, h0, c0, wx, wh, b, save: bool = True):
     if not build.on_cuda("lstm_seq", xs, h0, c0, wx, wh, b):
         ys, cseq, gates, h, c = lstm_seq_ref(xs, h0, c0, wx, wh, b)
         return ys, cseq if save else None, gates if save else None, h, c
-    global launches, launches_seq_fwd
     build.require_f32_contiguous("lstm_seq", xs=xs, h0=h0, c0=c0, wx=wx,
                                  wh=wh, b=b)
     steps, batch, in_dim, hidden = _seq_shapes(xs, h0, c0, wx, wh, b)
@@ -230,8 +228,7 @@ def lstm_seq_fwd(xs, h0, c0, wx, wh, b, save: bool = True):
         gates.data_ptr() if save else None, h_t.data_ptr(), c_t.data_ptr(),
         build.stream_handle(xs.device))
     build.check(status, "lstm_seq_fwd")
-    launches += 1
-    launches_seq_fwd += 1
+    build.count(__name__, "launches", "launches_seq_fwd")
     return ys, cseq, gates, h_t, c_t
 
 
@@ -242,7 +239,6 @@ def lstm_seq_bwd(dys, dh_t, dc_t, gates, cseq, c0, wh):
     ``LSTMSeqFn.backward``)."""
     if not build.on_cuda("lstm_seq", dys, dh_t, dc_t, gates, cseq, c0, wh):
         return lstm_seq_bwd_ref(dys, dh_t, dc_t, gates, cseq, c0, wh)
-    global launches, launches_seq_bwd
     build.require_f32_contiguous("lstm_seq", dys=dys, dh_t=dh_t, dc_t=dc_t,
                                  gates=gates, cseq=cseq, c0=c0, wh=wh)
     steps, batch, hidden = cseq.shape
@@ -268,8 +264,7 @@ def lstm_seq_bwd(dys, dh_t, dc_t, gates, cseq, c0, wh):
         seq_tile(batch), da.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
         build.stream_handle(c0.device))
     build.check(status, "lstm_seq_bwd")
-    launches += 1
-    launches_seq_bwd += 1
+    build.count(__name__, "launches", "launches_seq_bwd")
     return da, dh0, dc0
 
 

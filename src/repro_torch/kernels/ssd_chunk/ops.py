@@ -68,7 +68,6 @@ def ssd_intra_chunk(xdt, dA, B, C):
     h, all f32.  Returns (y_diag (b,c,l,h,p), states (b,c,h,n,p))."""
     if not build.on_cuda("ssd_chunk", xdt, dA, B, C):
         return ssd_intra_chunk_ref(xdt, dA, B, C)
-    global launches
     build.require_f32_contiguous("ssd_chunk", xdt=xdt, dA=dA, B=B, C=C)
     if xdt.dim() != 5 or B.dim() != 5:
         raise ValueError("ssd_chunk: xdt must be (b, c, l, h, p) and B, C "
@@ -93,7 +92,7 @@ def ssd_intra_chunk(xdt, dA, B, C):
         g, p, n, hb, y.data_ptr(), states.data_ptr(),
         build.stream_handle(xdt.device))
     build.check(status, "ssd_chunk")
-    launches += 1
+    build.count(__name__, "launches")
     return y, states
 
 

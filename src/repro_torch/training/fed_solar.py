@@ -96,6 +96,11 @@ def make_train_fn(sgd_step, *, epochs: int = 3, batch_size: int = 8):
 # the experiment
 # ---------------------------------------------------------------------------
 
+# the federation's clustering spaces: sites by location and by orientation
+SOLAR_SPACES = (
+    ClusterSpaceConfig("loc", eps=120.0, min_samples=2, metric="haversine"),
+    ClusterSpaceConfig("ori", eps=30.0, min_samples=2, metric="cyclic"))
+
 
 def run_fedccl_solar(n_sites: int = 9, n_days: int = 60, rounds: int = 3,
                      seed: int = 0, hidden: int = 64, epochs: int = 3,
@@ -104,16 +109,18 @@ def run_fedccl_solar(n_sites: int = 9, n_days: int = 60, rounds: int = 3,
                      dp_clip: float = None, dp_noise_multiplier: float = 1.0,
                      secure_agg: bool = False,
                      target_delta: float = 1e-5, *, device=None,
-                     init_params=None) -> dict:
+                     init_params=None, runtime: str = "sim") -> dict:
     """One experimental run.  Returns the Table-II-shaped report dict.
 
     ``device`` defaults to CUDA and raises when there is none.
     ``init_params`` (a tree of numpy arrays, e.g. JAX params through
     ``np.asarray``) replaces the port's own initialisation, which cannot
-    reproduce JAX's PRNG.  With ``dp_clip`` / ``secure_agg`` set, client
-    updates are privatized (clip + Gaussian noise) and/or aggregated under
-    pairwise masking; the report's ``privacy`` section then carries
-    (epsilon, delta) budgets.
+    reproduce JAX's PRNG.  ``runtime`` is ``FedCCLConfig.runtime``: the
+    deterministic "sim" or "threaded" (client threads; ``async_stats`` is
+    then the store's ``agg_stats()``).  With ``dp_clip`` / ``secure_agg``
+    set, client updates are privatized (clip + Gaussian noise) and/or
+    aggregated under pairwise masking; the report's ``privacy`` section
+    then carries (epsilon, delta) budgets.
     """
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -143,11 +150,7 @@ def run_fedccl_solar(n_sites: int = 9, n_days: int = 60, rounds: int = 3,
 
     # ---- FedCCL federation over the training population
     fed_cfg = FedCCLConfig(
-        spaces=(ClusterSpaceConfig("loc", eps=120.0, min_samples=2,
-                                   metric="haversine"),
-                ClusterSpaceConfig("ori", eps=30.0, min_samples=2,
-                                   metric="cyclic")),
-        ewc_lambda=ewc_lambda, seed=seed,
+        spaces=SOLAR_SPACES, ewc_lambda=ewc_lambda, seed=seed, runtime=runtime,
         dp_clip=dp_clip, dp_noise_multiplier=dp_noise_multiplier,
         secure_agg=secure_agg, target_delta=target_delta)
     fed = FedCCL(fed_cfg, init_params, train_fn, device=device)

@@ -251,7 +251,7 @@ def test_privacy_report_has_the_reference_shape(privacy):
 
 
 @pytest.mark.parametrize("option", [
-    {"runtime": "threaded"}, {"server_shards": 2}, {"server_processes": 2},
+    {"server_shards": 2}, {"server_processes": 2},
     {"server_hosts": ("localhost:1",)}, {"fetch_from_workers": True},
     {"telemetry": True}])
 def test_later_slices_raise(option):
