@@ -63,7 +63,26 @@ Phases, each fatal on failure (non-zero exit, no final line):
              with secure aggregation and DP (barrier rounds; secure rounds,
              DP releases = ``dp_clip_noise`` launches, epsilon the closed
              form); the LSTM on the sequence route only.
-7. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
+7. sharded — the thread-sharded server (``FedCCLConfig(server_shards=2)``)
+             at the main path's full width, fleet, rounds and epochs,
+             counters reset before each counted run: the sim runtime
+             batched (max_coalesce 8) against the same run on the flat
+             store (stats equal but for the shard fields, metas equal,
+             params within 1e-5 x max(1, max|p|), fold launches equal to
+             the N-way sums the recorded folds imply); the same sim at
+             hidden 16 on the card against the CPU; the threaded runtime
+             batched (two per-shard drain workers and a global one; exact
+             accounting, one more round profiled beside the flat run's) and
+             secure + DP (as in phase 6); one two-level fold of forecaster
+             trees (3 shards x 9 updates, max_width 4, resets) against its
+             plain version on CPU copies within 1e-6; the store stress of
+             ``benchmarks/sharded_store.py`` (8 writers x 150 cluster and
+             global submits, 16 clusters, the forecaster's tree) through
+             the flat and the 4-shard store with exact accounting,
+             submits/s reported; and ``save_store`` of the sharded store,
+             the same bytes from the card as from a CPU copy, loaded back
+             to the card bit for bit.
+8. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
              tokens) and gemma-2b (2 x 2048) at full width and depth in
              bf16, counters reset before and read after each run: exactly
              one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
@@ -76,7 +95,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              (examples/serve_batched.py's mix), no kernel launched, and
              ragged equal to independent decoding (held in f32, reported
              in bf16).
-8. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
+9. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
              from the same initial weights, without privacy, with DP and
              secure aggregation, and with DP alone (at a smaller clip, see
              AGREE_DP_CLIP): Table II must agree;
@@ -90,7 +109,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              The LLM path: decode by replay against the kernel forward (f32,
              full width, 4 layers, T 64), and the CUDA loss against the CPU
              loss from the same weights (f32, full width, 2 layers).
-9. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
+10. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
              subprocess on the card: exit 0, Table II printed and, in its
              ``solar_report.json``, finite and inside the system test's
              bounds.
@@ -1299,7 +1318,8 @@ def phase_main(dev) -> dict:
 
 # ------------------------------------------------------------------ phase 4
 def device_profile(tag, fn, top=8):
-    """Device kernels by name and the device's idle share of one call."""
+    """Device kernels by name and the device's idle share of one call;
+    returns the idle share (None when the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1314,19 +1334,21 @@ def device_profile(tag, fn, top=8):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"[{tag}] the profiler recorded no device time")
-        return
+        return None
     by_name: dict[str, list] = {}
     for e in kernels:
         slot = by_name.setdefault(e.name, [0, 0.0])
         slot[0] += 1
         slot[1] += e.time_range.elapsed_us()
     busy_us = sum(v[1] for v in by_name.values())
+    idle = 1.0 - busy_us / wall_us
     print(f"[{tag}] profiled call: {wall_us / 1e3:.2f} ms wall, "
           f"{len(kernels)} device kernels, {busy_us / 1e3:.3f} ms device "
-          f"busy, idle share {1.0 - busy_us / wall_us:.4f}")
+          f"busy, idle share {idle:.4f}")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+    return idle
 
 
 def phase_profile(dev):
@@ -1431,11 +1453,13 @@ def phase_privacy(dev) -> dict:
 
 
 # ------------------------------------------------------------------ phase 6
-def threaded_fed(dev, hidden, **extra):
-    """``FedCCL(FedCCLConfig(runtime="threaded", ...))`` over the
-    example's default fleet (MAIN_PATH: 6 sites of a fleet of 6 + 2, 40
-    days, 3 epochs) with ``run_fedccl_solar``'s clustering spaces, train_fn
-    and site speeds, at hidden ``hidden``."""
+def threaded_fed(dev, hidden, runtime="threaded", **extra):
+    """``FedCCL(FedCCLConfig(runtime=runtime, ...))`` (the threaded runtime
+    unless asked for the sim) over the example's default fleet (MAIN_PATH:
+    6 sites of a fleet of 6 + 2, 40 days, 3 epochs) with
+    ``run_fedccl_solar``'s clustering spaces, train_fn and site speeds, at
+    hidden ``hidden``; the initial weights come from a CPU generator, so
+    they are the same on every device."""
     import numpy as np
     import torch
     from repro_torch.configs.solar_lstm import SolarLSTMConfig
@@ -1460,7 +1484,7 @@ def threaded_fed(dev, hidden, **extra):
     train_fn = make_train_fn(make_solar_fns(fc, lr=1e-2)[0],
                              epochs=MAIN_PATH["epochs"])
     fed = FedCCL(FedCCLConfig(spaces=SOLAR_SPACES, ewc_lambda=0.05,
-                              seed=seed, runtime="threaded", **extra),
+                              seed=seed, runtime=runtime, **extra),
                  init, train_fn, device=dev)
     fed.setup([ClientSpec(s.site_id, s.static_features,
                           split_windows(make_windows(d), train_frac=0.8)[0],
@@ -1469,7 +1493,7 @@ def threaded_fed(dev, hidden, **extra):
     return fed
 
 
-def counted_threaded(fed, rounds):
+def counted_fed(fed, rounds):
     """``fed.run(rounds)`` with the launch counters set to 0 just before and
     read just after; returns (stats, counts, routes, wall)."""
     import torch
@@ -1512,60 +1536,10 @@ def require_exact_accounting(fed, stats, rounds, what):
     return updates
 
 
-def phase_threaded(dev) -> tuple[dict, dict]:
-    """The threaded runtime at full width, twice, counters set to 0 before
-    each run: batched aggregation (a server drain thread), then secure
-    aggregation with DP (barrier rounds).  Returns the two runs' launches
-    and routes summed."""
-    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+def sum_counts(*runs) -> tuple[dict, dict]:
+    """Launches and routes of several counted runs, summed."""
     counts, routes = {}, {}
-
-    fed = threaded_fed(dev, hidden, batch_aggregation=True, max_coalesce=8)
-    stats, c1, r1, wall = counted_threaded(fed, rounds)
-    print(f"[threaded] batched (max_coalesce 8), {len(fed.clients)} client "
-          f"threads, hidden {hidden}, {rounds} rounds of "
-          f"{MAIN_PATH['epochs']} epochs: {wall:.1f} s; agg_stats "
-          f"{json.dumps(stats)}; coalesce_factor "
-          f"{stats['coalesce_factor']}")
-    print(f"[threaded] batched: launches {json.dumps(c1)}; routes and calls "
-          f"{json.dumps(r1)}")
-    updates = require_exact_accounting(fed, stats, rounds, "threaded batched")
-    require_sequence_route(c1, r1, "threaded batched")
-    print(f"[threaded] batched: {updates} updates, every model's round and "
-          "samples exact, no queue left, 0 drain timeouts")
-    device_profile("threaded batched, one more round",
-                   lambda: fed.run(rounds=1))
-
-    fed = threaded_fed(dev, hidden, **PRIVACY)
-    stats, c2, r2, wall = counted_threaded(fed, rounds)
-    print(f"[threaded] secure + DP ({json.dumps(PRIVACY)}): {wall:.1f} s; "
-          f"agg_stats {json.dumps(stats)}")
-    print(f"[threaded] secure + DP: launches {json.dumps(c2)}; routes and "
-          f"calls {json.dumps(r2)}")
-    require_exact_accounting(fed, stats, rounds, "threaded secure")
-    require_sequence_route(c2, r2, "threaded secure")
-    want_rounds = rounds * (1 + len(fed.store.keys()))
-    require(stats["secure_rounds"] == want_rounds,
-            f"threaded secure: {stats['secure_rounds']} secure rounds, "
-            f"expected {want_rounds}")
-    require(c2["fedavg_agg"] == stats["secure_rounds"],
-            f"threaded secure: {c2['fedavg_agg']} folds for "
-            f"{stats['secure_rounds']} secure rounds")
-    priv = fed.privacy_report()
-    releases = sum(r["steps"] for r in priv["per_client"].values())
-    require(c2["dp_clip_noise"] == releases == stats["updates"],
-            f"threaded secure: {c2['dp_clip_noise']} dp_clip_noise launches, "
-            f"{releases} DP releases, {stats['updates']} updates")
-    sigma = PRIVACY["dp_noise_multiplier"]
-    for cid, row in priv["per_client"].items():
-        want = closed_form_epsilon(row["steps"], sigma, TARGET_DELTA)
-        require(math.isclose(row["epsilon"], want, rel_tol=1e-12),
-                f"threaded secure: client {cid} epsilon {row['epsilon']} != "
-                f"{want}")
-    print(f"[threaded] secure + DP: {want_rounds} secure rounds, "
-          f"{releases} DP releases = dp_clip_noise launches, epsilon the "
-          f"closed form; card: {card_line()}")
-    for c, r in ((c1, r1), (c2, r2)):
+    for c, r in runs:
         for name, n in c.items():
             counts[name] = counts.get(name, 0) + n
         for name, n in r.items():
@@ -1573,7 +1547,532 @@ def phase_threaded(dev) -> tuple[dict, dict]:
     return counts, routes
 
 
+def threaded_batched(dev, tag, **extra):
+    """The threaded runtime with batched aggregation (max_coalesce 8) at
+    full width, counters set to 0 before the run: exact accounting, the
+    LSTM on the sequence route, then one more round profiled.  Returns
+    (counts, routes, idle share of that round)."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    fed = threaded_fed(dev, hidden, batch_aggregation=True, max_coalesce=8,
+                       **extra)
+    stats, counts, routes, wall = counted_fed(fed, rounds)
+    workers = [t.name for t in fed._runtime.drain_workers]
+    opts = "".join(f", {k} {v}" for k, v in extra.items())
+    print(f"[{tag}] batched (max_coalesce 8{opts}), "
+          f"{len(fed.clients)} client threads, drain workers {workers}, "
+          f"hidden {hidden}, {rounds} rounds of {MAIN_PATH['epochs']} epochs: "
+          f"{wall:.1f} s ({wall:.4f} s); agg_stats {json.dumps(stats)}; "
+          f"coalesce_factor {stats['coalesce_factor']}")
+    print(f"[{tag}] batched: launches {json.dumps(counts)}; routes and calls "
+          f"{json.dumps(routes)}")
+    updates = require_exact_accounting(fed, stats, rounds, f"{tag} batched")
+    require_sequence_route(counts, routes, f"{tag} batched")
+    print(f"[{tag}] batched: {updates} updates, every model's round and "
+          "samples exact, no queue left, 0 drain timeouts")
+    idle = device_profile(f"{tag} batched, one more round",
+                          lambda: fed.run(rounds=1))
+    return counts, routes, idle
+
+
+def threaded_secure(dev, tag, **extra):
+    """The threaded runtime with secure aggregation and DP at full width,
+    counters set to 0 before the run: exact accounting, secure rounds =
+    rounds x (1 + clusters) = fold launches, DP releases = dp_clip_noise
+    launches = updates, epsilon the closed form.  Returns (counts,
+    routes)."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    fed = threaded_fed(dev, hidden, **PRIVACY, **extra)
+    stats, counts, routes, wall = counted_fed(fed, rounds)
+    print(f"[{tag}] secure + DP ({json.dumps(dict(PRIVACY, **extra))}): "
+          f"{wall:.1f} s ({wall:.4f} s); agg_stats {json.dumps(stats)}")
+    print(f"[{tag}] secure + DP: launches {json.dumps(counts)}; routes and "
+          f"calls {json.dumps(routes)}")
+    require_exact_accounting(fed, stats, rounds, f"{tag} secure")
+    require_sequence_route(counts, routes, f"{tag} secure")
+    want_rounds = rounds * (1 + len(fed.store.keys()))
+    require(stats["secure_rounds"] == want_rounds,
+            f"{tag} secure: {stats['secure_rounds']} secure rounds, "
+            f"expected {want_rounds}")
+    require(counts["fedavg_agg"] == stats["secure_rounds"],
+            f"{tag} secure: {counts['fedavg_agg']} folds for "
+            f"{stats['secure_rounds']} secure rounds")
+    priv = fed.privacy_report()
+    releases = sum(r["steps"] for r in priv["per_client"].values())
+    require(counts["dp_clip_noise"] == releases == stats["updates"],
+            f"{tag} secure: {counts['dp_clip_noise']} dp_clip_noise "
+            f"launches, {releases} DP releases, {stats['updates']} updates")
+    sigma = PRIVACY["dp_noise_multiplier"]
+    for cid, row in priv["per_client"].items():
+        want = closed_form_epsilon(row["steps"], sigma, TARGET_DELTA)
+        require(math.isclose(row["epsilon"], want, rel_tol=1e-12),
+                f"{tag} secure: client {cid} epsilon {row['epsilon']} != "
+                f"{want}")
+    print(f"[{tag}] secure + DP: {want_rounds} secure rounds, "
+          f"{releases} DP releases = dp_clip_noise launches, epsilon the "
+          f"closed form; card: {card_line()}")
+    return counts, routes
+
+
+def phase_threaded(dev) -> tuple[dict, dict, float | None]:
+    """The threaded runtime at full width, twice, counters set to 0 before
+    each run: batched aggregation (a server drain thread), then secure
+    aggregation with DP (barrier rounds).  Returns the two runs' launches
+    and routes summed, and the batched round's idle share."""
+    c1, r1, idle = threaded_batched(dev, "threaded")
+    counts, routes = sum_counts((c1, r1), threaded_secure(dev, "threaded"))
+    return counts, routes, idle
+
+
 # ------------------------------------------------------------------ phase 7
+# the thread-sharded server: 2 shards, batched at the threaded runs'
+# max_coalesce; the store stress at the reference benchmark's shape
+# (benchmarks/sharded_store.py, BENCH_sharded.json)
+SHARDED = dict(server_shards=2, batch_aggregation=True, max_coalesce=8)
+# the sim's stats keys only a sharded store reports
+SHARD_FIELDS = ("shards", "global_drains", "shard_enqueued")
+STRESS = dict(writers=8, per_writer=150, clusters=16, shards=4,
+              max_coalesce=16, pool=8)
+TWO_LEVEL = dict(shards=3, per_shard=9, max_width=4)
+
+
+class recording_folds:
+    """Record the scalar half of every fold the stores make while the block
+    runs (base meta, the batch's metas and deltas, by shard for the
+    two-level fold), from which ``implied_launches`` counts the N-way sums
+    on the CPU."""
+
+    def __enter__(self):
+        import repro_torch.core.store as store
+
+        self.folds = []
+        self._saved = (store.coalesced_aggregate,
+                       store.two_level_coalesced_aggregate)
+        flat, two = self._saved
+
+        def rec_flat(base_params, base_meta, updates, cfg):
+            updates = list(updates)
+            self.folds.append(("flat", base_meta,
+                               [(m, d) for _, m, d in updates], None, 0))
+            return flat(base_params, base_meta, updates, cfg)
+
+        def rec_two(base_params, base_meta, batches, cfg, *, seqs=None,
+                    max_width=0):
+            self.folds.append(("two", base_meta,
+                               [[(m, d) for _, m, d in b] for b in batches],
+                               seqs, max_width))
+            return two(base_params, base_meta, batches, cfg, seqs=seqs,
+                       max_width=max_width)
+
+        store.coalesced_aggregate = rec_flat
+        store.two_level_coalesced_aggregate = rec_two
+        return self.folds
+
+    def __exit__(self, *exc):
+        import repro_torch.core.store as store
+
+        (store.coalesced_aggregate,
+         store.two_level_coalesced_aggregate) = self._saved
+        return False
+
+
+def chunk_sums(n: int, width: int) -> tuple[int, int]:
+    """(entries left, N-way sums made) when ``chunked_convex_reduce``
+    folds ``n`` entries of nonzero mass ``width`` at a time; a chunk of
+    one entry passes through without a sum."""
+    sums = 0
+    while width > 0 and n > width:
+        full, rest = divmod(n, width)
+        sums += full + (rest > 1)
+        n = full + (rest > 0)
+    return n, sums
+
+
+def implied_launches(folds) -> int:
+    """The fold kernel launches the recorded folds imply, from their
+    metadata alone: a flat fold with more than one surviving set is one
+    sum; a two-level fold makes one sum per per-shard chunk of more than
+    one member and one per merge of more than one entry (none for a lone
+    survivor).  Each sum here has at most 64 sets: one launch."""
+    from repro_torch.core.aggregation import plan_coalesce
+
+    total = 0
+    for kind, base, batches, seqs, max_width in folds:
+        if kind == "flat":
+            plan = plan_coalesce(base, batches)
+            total += sum(w != 0.0 for w in plan.weights) > 1
+            continue
+        order = sorted((seqs[k][j] if seqs is not None else (k, j), k, m, d)
+                       for k, b in enumerate(batches)
+                       for j, (m, d) in enumerate(b))
+        plan = plan_coalesce(base, [(m, d) for _, _, m, d in order])
+        survivors = {}
+        for (_, k, _, _), w in zip(order, plan.weights[1:], strict=True):
+            if w != 0.0:
+                survivors[k] = survivors.get(k, 0) + 1
+        base_live = plan.weights[0] != 0.0
+        if not survivors or (not base_live and sum(survivors.values()) == 1):
+            continue
+        width = max(max_width, 2) if max_width > 0 else 0
+        entries = int(base_live)
+        for n in survivors.values():
+            left, sums = chunk_sums(n, width)
+            entries += left
+            total += sums
+        while entries > 1:
+            if width <= 0 or entries <= width:
+                total, entries = total + 1, 1
+            else:
+                entries, sums = chunk_sums(entries, width)
+                total += sums
+    return total
+
+
+def to_cpu(tree):
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.cpu(), tree)
+
+
+def model_keys(store) -> list:
+    return [("global", None)] + [("cluster", k) for k in store.keys()]
+
+
+def params_gap(a, b) -> tuple[float, float]:
+    """(max abs difference over every model of two stores, max |p| of
+    the first)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    gap, top = 0.0, 0.0
+    for level, key in model_keys(a):
+        for x, y in zip(tree_leaves(a.params(level, key)),
+                        tree_leaves(b.params(level, key)), strict=True):
+            gap = max(gap, (x.cpu() - y.cpu()).abs().max().item())
+            top = max(top, x.abs().max().item())
+    return gap, top
+
+
+def require_same_metas(a, b, what):
+    require(sorted(a.keys()) == sorted(b.keys()),
+            f"{what}: cluster keys differ")
+    for level, key in model_keys(a):
+        require(a.meta(level, key) == b.meta(level, key),
+                f"{what}: {level} {key} meta {a.meta(level, key)} != "
+                f"{b.meta(level, key)}")
+
+
+def sharded_sim(dev):
+    """The sim runtime at full width with the sharded store, then with the
+    flat one: stats equal but for the shard fields, metas equal, params
+    within 1e-5 x max(1, max|p|), and each run's fold launches equal to
+    what its recorded folds imply.  Returns the sharded run's counts,
+    routes and FedCCL."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    runs = {}
+    for name, extra in (("sharded", SHARDED),
+                        ("flat", {k: v for k, v in SHARDED.items()
+                                  if k != "server_shards"})):
+        fed = threaded_fed(dev, hidden, runtime="sim", **extra)
+        with recording_folds() as folds:
+            stats, counts, routes, wall = counted_fed(fed, rounds)
+        implied = implied_launches(folds)
+        print(f"[sharded] sim, {name} store ({json.dumps(extra)}), hidden "
+              f"{hidden}: {wall:.1f} s ({wall:.4f} s); stats "
+              f"{json.dumps(stats)}; launches {json.dumps(counts)}; "
+              f"{len(folds)} folds recorded, {implied} N-way sums implied")
+        require_sequence_route(counts, routes, f"sharded sim ({name})")
+        require(counts["fedavg_agg"] == implied,
+                f"sharded sim ({name}): {counts['fedavg_agg']} fold launches"
+                f", the two-level structure implies {implied}")
+        runs[name] = (fed, stats, counts, routes)
+    fed, stats, counts, routes = runs["sharded"]
+    flat, fstats = runs["flat"][:2]
+    agg = fed.store.agg_stats()
+    require({k: v for k, v in stats.items() if k not in SHARD_FIELDS}
+            == fstats, f"sharded sim: stats differ from the flat run's: "
+            f"{stats} {fstats}")
+    require_same_metas(fed.store, flat.store, "sharded sim")
+    gap, top = params_gap(fed.store, flat.store)
+    print(f"[sharded] sim: stats equal to the flat run's but for "
+          f"{SHARD_FIELDS}, metas equal; params max abs diff {gap:.3e} "
+          f"(limit {1e-5 * max(1.0, top):.3e}); global_drains "
+          f"{agg['global_drains']}, global_partials {agg['global_partials']}"
+          f", shard_enqueued {agg['shard_enqueued']}; fold launches "
+          f"{counts['fedavg_agg']} = implied; card: {card_line()}")
+    require(gap <= 1e-5 * max(1.0, top), f"sharded sim: params differ from "
+            f"the flat run's by {gap}")
+    return counts, routes, fed
+
+
+def sharded_cuda_vs_cpu(dev):
+    """The sharded sim at hidden 16 on the card and on the CPU from one
+    init: stats and metas equal, params within DROPOUT_ATOL."""
+    feds = [threaded_fed(d, 16, runtime="sim", **SHARDED)
+            for d in (dev, "cpu")]
+    stats, walls = [], []
+    for fed in feds:
+        t0 = time.perf_counter()
+        stats.append(fed.run(rounds=MAIN_PATH["rounds"]))
+        walls.append(time.perf_counter() - t0)
+    require(stats[0] == stats[1], f"sharded sim at hidden 16: stats differ "
+            f"{stats}")
+    require_same_metas(feds[0].store, feds[1].store, "sharded CUDA vs CPU")
+    gap, _ = params_gap(feds[0].store, feds[1].store)
+    print(f"[sharded] sim at hidden 16, CUDA vs CPU ({walls[0]:.1f} s and "
+          f"{walls[1]:.1f} s): stats and metas equal, params max abs diff "
+          f"{gap:.3e} (limit {DROPOUT_ATOL}); card: {card_line()}")
+    require(gap <= DROPOUT_ATOL, f"sharded sim: CUDA and CPU params differ "
+            f"by {gap}")
+
+
+def check_two_level_fold(dev):
+    """One two-level fold over forecaster trees made from the seed (3
+    shards x 9 updates, max_width 4, fast-path and zero-sample resets) on
+    the card against the same fold of CPU copies (``ref.agg_leaves_ref``),
+    and its launches against what its structure implies.  Comparison
+    launches: kept out of every path's counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.aggregation import (
+        ModelMeta,
+        UpdateDelta,
+        two_level_coalesced_aggregate,
+    )
+    from repro_torch.kernels.fedavg_agg import ops
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.utils.tree import flatten_params
+
+    k, per, width = (TWO_LEVEL[x] for x in ("shards", "per_shard",
+                                             "max_width"))
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=MAIN_PATH["hidden"]))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    base, base_meta = fc.init(gen, dev), ModelMeta(500, 3, 4)
+    batches, seqs = [[] for _ in range(k)], [[] for _ in range(k)]
+    for seq in range(k * per):
+        s = 0 if seq in (7, 19) else int(rng.integers(20, 300))
+        # seq 4 lands on the fast path (round = base round + rounds before
+        # it + 1); seqs 7 and 19 are zero-sample resets
+        rnd = 9 if seq == 4 else int(rng.integers(1, 5))
+        batches[seq % k].append((fc.init(gen, dev), ModelMeta(s, 3, rnd),
+                                 UpdateDelta(s, 3, 1)))
+        seqs[seq % k].append(seq)
+
+    def fold(b, bs):
+        return two_level_coalesced_aggregate(b, base_meta, bs, seqs=seqs,
+                                             max_width=width)
+    before = ops.launches_leaves
+    got = fold(base, batches)
+    torch.cuda.synchronize()
+    launched = ops.launches_leaves - before
+    want = fold(to_cpu(base), [[(to_cpu(p), m, d) for p, m, d in b]
+                               for b in batches])
+    implied = implied_launches([("two", base_meta,
+                                 [[(m, d) for _, m, d in b] for b in batches],
+                                 seqs, width)])
+    err = (flatten_params(got.params).cpu()
+           - flatten_params(want.params)).abs().max().item()
+    ms = cuda_ms(lambda: fold(base, batches), iters=20, warmup=2)
+    print(f"[sharded] two_level_coalesced_aggregate, {k} shards x {per} "
+          f"updates at T {SOLAR_PARAMS}, max_width {width}: "
+          f"{got.n_fast_path} fast-path resets, {got.n_param_sets} sets "
+          f"into the merge, {got.n_partials} partials, {launched} "
+          f"leaf-kernel launches ({implied} implied); CUDA vs CPU plain "
+          f"max abs err {err:.3e} (limit 1e-6); {ms:.5f} ms a fold back to "
+          f"back; card: {card_line()}")
+    require(launched == implied, f"two-level fold: {launched} launches, "
+            f"{implied} implied")
+    require(err <= 1e-6, f"two-level fold: CUDA vs CPU err {err}")
+    require(got.meta == want.meta and got.n_partials == want.n_partials,
+            "two-level fold: CUDA and CPU plans differ")
+
+
+def stress_draws(n_writers, per_writer, n_clusters):
+    """Each writer's (cluster key, samples) draws, as
+    ``benchmarks/sharded_store.py``'s writers make them, and the per-model
+    (rounds, samples) they add up to (key None: the global model)."""
+    import numpy as np
+
+    draws, want = [], {}
+    for idx in range(n_writers):
+        wrng = np.random.default_rng(10_000 + idx)
+        mine = []
+        for _ in range(per_writer):
+            s = int(wrng.integers(20, 200))
+            key = f"c{int(wrng.integers(n_clusters))}"
+            mine.append((key, s))
+            for k in (key, None):
+                r, n = want.get(k, (0, 0))
+                want[k] = (r + 1, n + s)
+        draws.append(mine)
+    return draws, want
+
+
+def stress_store(name, store, pools, draws, want):
+    """One writer thread a pool, each submitting a cluster and a global
+    update per draw, against the store's drain workers
+    (``AsyncThreadedRuntime``); the clock stops after the workers' final
+    sweeps.  Exact accounting; returns the row it prints."""
+    import threading
+    import torch
+    from repro_torch.core.aggregation import ModelMeta, UpdateDelta
+    from repro_torch.core.runtime_threaded import AsyncThreadedRuntime
+    from repro_torch.kernels.fedavg_agg import ops
+
+    def writer(idx):
+        pool = pools[idx]
+        for i, (key, s) in enumerate(draws[idx]):
+            tree = pool[i % len(pool)]
+            store.handle_model_update("cluster", key, tree,
+                                      ModelMeta(s, 1, 1), UpdateDelta(s, 1, 1))
+            store.handle_model_update("global", None, tree,
+                                      ModelMeta(s, 1, 1), UpdateDelta(s, 1, 1))
+
+    rt = AsyncThreadedRuntime([], store, drain_poll=1e-4, join_timeout=60.0)
+    stop = threading.Event()
+    threads = [threading.Thread(target=writer, args=(i,))
+               for i in range(len(pools))]
+    torch.cuda.synchronize()
+    before = ops.launches_leaves
+    t0 = time.perf_counter()
+    rt._start_drain_workers(stop)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rt._join_drain_workers(stop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(not rt.errors, f"stress {name}: {rt.errors[:1]}")
+    stats = store.agg_stats()
+    submits = sum(len(d) for d in draws) * 2
+    require(stats["updates"] == stats["enqueued"] == submits
+            and stats["drain_timeouts"] == 0,
+            f"stress {name}: {stats['updates']} updates, "
+            f"{stats['enqueued']} enqueued, {submits} submitted")
+    for key, (r, n) in want.items():
+        level = "global" if key is None else "cluster"
+        meta = store.meta(level, key)
+        require((meta.round, meta.samples_learned) == (r, n)
+                and store.pending_depth(level, key) == 0,
+                f"stress {name}: {level} {key} round {meta.round} samples "
+                f"{meta.samples_learned}, expected {r} and {n}")
+    row = {"store": name, "shards": getattr(store, "n_shards", 0),
+           "drain_workers": [t.name for t in rt.drain_workers],
+           "submits": submits, "wall_s": wall,
+           "submits_per_s": submits / wall,
+           "coalesce_factor": stats["coalesce_factor"],
+           "max_queue_depth": stats["max_queue_depth"],
+           "fold_launches": ops.launches_leaves - before}
+    for k in ("global_drains", "global_partials"):
+        if k in stats:
+            row[k] = stats[k]
+    print(f"[sharded] stress {json.dumps(row)}; every model's round and "
+          f"samples exact, no queue left; card: {card_line()}")
+    return row
+
+
+def sharded_stress(dev):
+    """The reference benchmark's store stress (8 writers x 150 submits of
+    a cluster and a global update, 16 clusters, max_coalesce 16) with the
+    forecaster's tree at hidden 128 on the card: the flat batched store,
+    then the sharded store at 4 shards.  A measurement: no rate is
+    held."""
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.store import ModelStore, ShardedModelStore
+    from repro_torch.models.lstm import SolarForecaster
+
+    n_w, per, n_c = (STRESS[x] for x in ("writers", "per_writer",
+                                          "clusters"))
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=MAIN_PATH["hidden"]))
+    gen = torch.Generator(device=dev).manual_seed(100)
+    pools = [[fc.init(gen, dev) for _ in range(STRESS["pool"])]
+             for _ in range(n_w)]
+    init = fc.init(gen, dev)
+    keys = [f"c{i}" for i in range(n_c)]
+    draws, want = stress_draws(n_w, per, n_c)
+    kw = dict(batch_aggregation=True, max_coalesce=STRESS["max_coalesce"])
+    # a short run on a throwaway store first, so neither timed run pays
+    # the allocator's first requests
+    stress_store("warm-up", ShardedModelStore(init, keys, n_shards=2, **kw),
+                 pools[:2], *stress_draws(2, 8, n_c))
+    stress_store("flat_batched", ModelStore(init, keys, **kw), pools, draws,
+                 want)
+    stress_store(f"sharded_{STRESS['shards']}",
+                 ShardedModelStore(init, keys, n_shards=STRESS["shards"],
+                                   **kw), pools, draws, want)
+
+
+def check_checkpoint(dev, store):
+    """``save_store`` of the sharded run's store writes the same bytes from
+    the card as from a CPU copy; ``load_store(..., device=dev)`` gives the
+    params bit for bit and the metas."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.msgpack_ckpt import load_store, save_store
+    from repro_torch.core.store import GLOBAL_KEY, ShardedModelStore
+    from repro_torch.utils.tree import tree_leaves
+
+    copy = ShardedModelStore(to_cpu(store.params("global")), store.keys(),
+                             n_shards=store.n_shards)
+    for key in [GLOBAL_KEY] + store.keys():
+        params, meta = store._records[key].snapshot()
+        copy._records[key].swap(to_cpu(params), meta)
+    with tempfile.TemporaryDirectory() as tmp:
+        card, host = Path(tmp) / "card.msgpack", Path(tmp) / "cpu.msgpack"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_store(card, store)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        save_store(host, copy)
+        raw = card.read_bytes()
+        require(raw == host.read_bytes(),
+                "checkpoint: the card's bytes differ from the CPU copy's")
+        t0 = time.perf_counter()
+        back = load_store(card, device=dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    require_same_metas(back, store, "checkpoint")
+    for level, key in model_keys(store):
+        for x, y in zip(tree_leaves(back.params(level, key)),
+                        tree_leaves(store.params(level, key)), strict=True):
+            require(x.device == y.device and torch.equal(x, y),
+                    f"checkpoint: {level} {key} params differ")
+    print(f"[sharded] checkpoint of the sharded sim's store "
+          f"({len(model_keys(store))} models): {len(raw)} bytes, the same "
+          f"from the card as from a CPU copy; save {save_ms:.2f} ms, load "
+          f"to {dev} {load_ms:.2f} ms; params bit for bit, metas equal; "
+          f"card: {card_line()}")
+
+
+def phase_sharded(dev, flat_idle) -> tuple[dict, dict]:
+    """The thread-sharded server (``FedCCLConfig(server_shards=2)``) at the
+    main path's full width: the sim against the flat store, the sim on
+    CUDA against the CPU, the threaded runtime batched (per-shard drain
+    workers) and secure + DP, the two-level fold against its plain
+    version, the store stress and the checkpoint.  Returns the launches
+    and routes of the sim and the two threaded runs summed (counters set
+    to 0 before each)."""
+    sim_counts, sim_routes, sim = sharded_sim(dev)
+    sharded_cuda_vs_cpu(dev)
+    c2, r2, idle = threaded_batched(dev, "sharded", server_shards=2)
+    print(f"[sharded] idle share of one more threaded batched round: "
+          f"sharded {idle}, flat {flat_idle} (phase threaded); card: "
+          f"{card_line()}")
+    counts, routes = sum_counts(
+        (sim_counts, sim_routes), (c2, r2),
+        threaded_secure(dev, "sharded", server_shards=2))
+    for name in PRIVACY_KERNELS:
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                                  "sharded path")
+    check_two_level_fold(dev)
+    sharded_stress(dev)
+    check_checkpoint(dev, sim.store)
+    return counts, routes
+
+
+# ------------------------------------------------------------------ phase 8
 def llm_model(arch, dev, dtype=None, depth=None, generator=None):
     """(cfg, model, params) of ``arch`` at full width, weights random from
     the seed: drawn on the card (a CUDA generator) unless ``generator``."""
@@ -1762,7 +2261,7 @@ def phase_llm_agree(dev):
         torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 9
 def table_gap(a, b, same_nan=True) -> float:
     """Largest Table II / §IV.E gap in pp over the entries that are NaN in
     neither run; with ``same_nan`` NaN must sit in the same places."""
@@ -1956,7 +2455,7 @@ def check_threaded_secure(dev, init):
                              f"{gap} pp")
 
 
-# ------------------------------------------------------------------ phase 9
+# ------------------------------------------------------------------ phase 10
 def phase_example():
     """``examples/solar_forecasting_torch.py`` as a user runs it, on the
     card: it must exit 0, print Table II and write a report whose Table II
@@ -2014,7 +2513,8 @@ def main() -> int:
         counts["main"], routes["main"] = phase_main(dev)
         phase_profile(dev)
         counts["privacy"], routes["privacy"] = phase_privacy(dev)
-        counts["threaded"], routes["threaded"] = phase_threaded(dev)
+        counts["threaded"], routes["threaded"], idle = phase_threaded(dev)
+        counts["sharded"], routes["sharded"] = phase_sharded(dev, idle)
         counts["llm"] = phase_llm(dev)
         phase_agree(dev)
         phase_llm_agree(dev)

@@ -107,12 +107,15 @@ class CoalesceResult:
     n_folded: int        # queued updates consumed
     n_param_sets: int    # parameter sets in the final weighted sum
     n_fast_path: int     # updates that hit the sequential fast path
+    n_partials: int = 0  # shard partial sums feeding the two-level merge
 
 
 @dataclass(frozen=True)
 class CoalescePlan:
     """The scalar half of a coalesced fold: the telescoped convex weight each
-    parameter set carries in the final sum.
+    parameter set carries in the final sum, separated from the tree
+    arithmetic so the sums can be computed in one flat N-way call or
+    partitioned across shards (``two_level_coalesced_aggregate``).
 
     ``weights[0]`` belongs to the base; ``weights[1 + i]`` to update ``i`` in
     fold order.  A sequential-fast-path or zero-sample reset zeroes every
@@ -179,6 +182,105 @@ def coalesced_aggregate(base_params, base_meta: ModelMeta, updates,
                               plan.n_fast_path)
     return CoalesceResult(multi_aggregate(sets, fracs, cfg), plan.meta,
                           len(updates), len(sets), plan.n_fast_path)
+
+
+def chunked_convex_reduce(entries, max_width: int,
+                          cfg: AggregationConfig = AggregationConfig()):
+    """Reduce a ``(params, mass)`` list so every fused sum is at most
+    ``max_width`` wide; returns a (possibly shorter) ``(params, mass)``
+    list.  Nested mass-weighted convex averages recombine exactly (the same
+    telescoping the flat fold relies on), so chunk boundaries are free.
+    ``max_width <= 0`` disables chunking (the list is returned unchanged).
+    Each chunk of more than one entry is one ``multi_aggregate`` call: one
+    fold kernel launch on CUDA."""
+    # chunks of one entry never shrink the list — a width of 1 must still
+    # fold pairs to make progress
+    width = max(max_width, 2) if max_width > 0 else 0
+    if width <= 0 or len(entries) <= width:
+        return list(entries)
+    out = []
+    for i in range(0, len(entries), width):
+        chunk = entries[i:i + width]
+        mass = sum(m for _, m in chunk)
+        if mass == 0.0:
+            continue
+        p = (chunk[0][0] if len(chunk) == 1 else
+             multi_aggregate([p for p, _ in chunk],
+                             [m for _, m in chunk], cfg))
+        out.append((p, mass))
+    return chunked_convex_reduce(out, max_width, cfg)
+
+
+def two_level_coalesced_aggregate(base_params, base_meta: ModelMeta,
+                                  shard_batches,
+                                  cfg: AggregationConfig = AggregationConfig(),
+                                  *, seqs=None,
+                                  max_width: int = 0) -> CoalesceResult:
+    """Sharded two-level fold: per-shard coalesced partials reduced by a
+    sample-weighted cross-shard merge.
+
+    ``shard_batches[k]`` is shard *k*'s FIFO batch of ``(params, meta,
+    delta)`` triples; ``seqs[k]`` (optional, parallel structure) carries
+    global arrival sequence numbers.  The fold order is the seq-sorted
+    concatenation (shard-index concatenation when ``seqs`` is None).
+
+    The flat telescoped fold ends at ``w0·base + Σ wi·pi`` with
+    coefficients that depend only on the metadata sequence
+    (``plan_coalesce``).  The plan is computed once over the full fold
+    order; each shard reduces its own members to a convex partial
+    ``P_k = Σ_{i∈k} (wi/W_k)·pi`` of mass ``W_k = Σ_{i∈k} wi``, and the
+    merge ``w0·base + Σ_k W_k·P_k`` restores the flat sum: equal in real
+    arithmetic, within float-summation reorder in f32.  Resets (fast path
+    / zero-sample) zero coefficients across shard boundaries through the
+    shared plan.  ``max_width`` > 0 bounds every fused sum's arity.
+
+    The lone-survivor passthrough returns the client's own tree: safe
+    because nothing in the port updates a tensor in place.
+    """
+    flat = []            # (order_key, shard_idx, params, meta, delta)
+    for k, batch in enumerate(shard_batches):
+        for j, (p, m, d) in enumerate(batch):
+            key = seqs[k][j] if seqs is not None else (k, j)
+            flat.append((key, k, p, m, d))
+    flat.sort(key=lambda e: e[0])
+    if not flat:
+        return CoalesceResult(base_params, base_meta, 0, 1, 0)
+    plan = plan_coalesce(base_meta, [(m, d) for _, _, _, m, d in flat], cfg)
+
+    # gather each shard's surviving (params, weight) members in fold order
+    per_shard: dict[int, list] = {}
+    for (_, k, p, _, _), w in zip(flat, plan.weights[1:], strict=True):
+        if w != 0.0:
+            per_shard.setdefault(k, []).append((p, w))
+
+    base_w = plan.weights[0]
+    if not per_shard:    # no surviving updates => the base carries weight 1
+        return CoalesceResult(base_params, plan.meta, len(flat), 1,
+                              plan.n_fast_path)
+    if base_w == 0.0 and sum(len(v) for v in per_shard.values()) == 1:
+        # lone fast-path / replace survivor: exact passthrough, no float math
+        (p, _), = next(iter(per_shard.values()))
+        return CoalesceResult(p, plan.meta, len(flat), 1, plan.n_fast_path)
+
+    partials = []        # (partial_params, mass) — convex within, mass to merge
+    for k in sorted(per_shard):
+        for p, mass in chunked_convex_reduce(per_shard[k], max_width, cfg):
+            if mass != 0.0:
+                partials.append((p, mass))
+    # the merge is arity-bounded the same way (the base rides along as a
+    # mass-weighted entry, so deep multi-shard backlogs never widen one sum)
+    entries = ([(base_params, base_w)] if base_w != 0.0 else []) + partials
+    n_sets = len(entries)
+    width = max(max_width, 2) if max_width > 0 else 0
+    while len(entries) > 1:
+        if width <= 0 or len(entries) <= width:
+            entries = [(multi_aggregate([p for p, _ in entries],
+                                        [m for _, m in entries], cfg),
+                        sum(m for _, m in entries))]
+        else:
+            entries = chunked_convex_reduce(entries, max_width, cfg)
+    return CoalesceResult(entries[0][0], plan.meta, len(flat), n_sets,
+                          plan.n_fast_path, n_partials=len(partials))
 
 
 def secure_coalesced_aggregate(base_params, base_meta: ModelMeta,

@@ -6,12 +6,14 @@ the runtime into one object — the library's main entry point.
     fed.run(rounds=5)                # async training (sim or threaded)
     keys, params = fed.join(new_spec)  # Predict & Evolve for a new client
 
-The port runs the single-lock ``ModelStore`` under the deterministic sim
-runtime or the threaded one (client threads against the locked store), with
-the privacy layer (DP privatization, pairwise-mask secure aggregation, RDP
-accounting; ``repro_torch.privacy``).  The other topologies and the
-telemetry layer of the reference arrive with later slices (see
-ROADMAP.md); asking for them raises ``NotImplementedError``.
+The port runs the single-lock ``ModelStore`` or, with ``server_shards``,
+the thread-sharded ``ShardedModelStore`` (per-shard drain workers, two-level
+global fold, live cluster migration) under the deterministic sim runtime or
+the threaded one, with the privacy layer (DP privatization, pairwise-mask
+secure aggregation, RDP accounting; ``repro_torch.privacy``).  The process
+and TCP topologies, the read tier and the telemetry layer of the reference
+arrive with later slices (see ROADMAP.md); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.core.predict_evolve import ClusterSpace, PredictEvolve
 from repro_torch.core.protocol import Client, ClientSpec
 from repro_torch.core.runtime_sim import AsyncSimRuntime
 from repro_torch.core.runtime_threaded import AsyncThreadedRuntime
-from repro_torch.core.store import ModelStore
+from repro_torch.core.store import ModelStore, ShardedModelStore
 from repro_torch.privacy.accountant import RDPAccountant
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
 from repro_torch.privacy.secure_agg import PairwiseMasker
@@ -53,6 +55,18 @@ class FedCCLConfig:
     dropout_prob: float = 0.0        # client-unavailability resilience knob
     batch_aggregation: bool = False  # coalescing server path (queue + drain)
     max_coalesce: int = 16           # max queued updates folded per drain
+    # server sharding: 0 = single ModelStore; K >= 1 = ShardedModelStore
+    # with K per-cluster shards (per-shard drain workers in the threaded
+    # runtime, two-level global fold)
+    server_shards: int = 0
+    # virtual nodes per shard on the consistent-hash ownership ring
+    ring_vnodes: int = 64
+    # FedCCL.rebalance() policy: None = manual only (migrate_cluster);
+    # "load" moves the hottest shard's deepest-queued cluster to the
+    # coldest shard when the hot shard carries more than
+    # rebalance_hot_ratio times the cold shard's submits
+    rebalance_policy: str | None = None
+    rebalance_hot_ratio: float = 2.0
     # bounded drain deadline: drain-worker joins in the threaded runtime;
     # expiries surface as agg_stats()["drain_timeouts"] instead of silent
     # partial drains
@@ -67,25 +81,22 @@ class FedCCLConfig:
     # see the magnitude caveat in repro_torch.privacy.secure_agg
     secure_mask_scale: float = 1.0
     # ---- later slices: setting any of these raises NotImplementedError
-    server_shards: int = 0
     server_processes: int = 0
     server_hosts: tuple = ()
     fetch_from_workers: bool = False
     telemetry: bool = False
 
 
-# (what was asked for, is it set, the slice of ROADMAP.md's module queue
-# that brings it)
+# (what was asked for, is it set, the entry of ROADMAP.md's module queue
+# that brings it, by its title)
 _LATER_SLICES = (
-    ("server_shards", lambda c: c.server_shards > 0,
-     "scale-out server tiers"),
     ("server_processes", lambda c: c.server_processes > 0,
-     "scale-out server tiers"),
+     "Scale-out server tiers: the process and TCP tiers"),
     ("server_hosts", lambda c: bool(c.server_hosts),
-     "scale-out server tiers"),
+     "Scale-out server tiers: the process and TCP tiers"),
     ("fetch_from_workers", lambda c: c.fetch_from_workers,
-     "scale-out server tiers (read tier)"),
-    ("telemetry", lambda c: c.telemetry, "telemetry"),
+     "Scale-out server tiers: the read tier"),
+    ("telemetry", lambda c: c.telemetry, "Telemetry"),
 )
 
 
@@ -96,8 +107,8 @@ class FedCCL:
             if is_set(cfg):
                 raise NotImplementedError(
                     f"{what} is not ported to repro_torch yet; it arrives "
-                    f"with the '{slice_name}' slice of ROADMAP.md's module "
-                    "queue")
+                    f"with the entry \"{slice_name}\" of ROADMAP.md's "
+                    "module queue")
         if cfg.runtime not in ("sim", "threaded"):
             raise ValueError(f"unknown runtime {cfg.runtime!r}")
         self.cfg = cfg
@@ -111,11 +122,18 @@ class FedCCL:
                        if cfg.secure_agg else None)
         self.accountant = (RDPAccountant(target_delta=cfg.target_delta)
                            if cfg.dp_clip is not None else None)
-        self.store = ModelStore(init_params,
-                                batch_aggregation=cfg.batch_aggregation,
-                                max_coalesce=cfg.max_coalesce,
-                                masker=self.masker,
-                                drain_timeout_s=cfg.drain_timeout_s)
+        if cfg.server_shards > 0:
+            self.store = ShardedModelStore(
+                init_params, n_shards=cfg.server_shards,
+                batch_aggregation=cfg.batch_aggregation,
+                max_coalesce=cfg.max_coalesce, masker=self.masker,
+                drain_timeout_s=cfg.drain_timeout_s,
+                ring_vnodes=cfg.ring_vnodes)
+        else:
+            self.store = ModelStore(
+                init_params, batch_aggregation=cfg.batch_aggregation,
+                max_coalesce=cfg.max_coalesce, masker=self.masker,
+                drain_timeout_s=cfg.drain_timeout_s)
         self.spaces = [
             ClusterSpace(s.name, IncrementalDBSCAN(s.eps, s.min_samples, s.metric))
             for s in cfg.spaces]
@@ -161,6 +179,50 @@ class FedCCL:
         rt.run(rounds)
         self._runtime = rt
         return rt.stats()
+
+    def shutdown(self):
+        """Release server resources: a no-op, since the port's stores run in
+        this process's threads and hold no worker or socket (the
+        reference's process and TCP stores do).  Model state stays
+        readable."""
+
+    # ------------------------------------------------- elastic membership
+    def migrate_cluster(self, cluster_key: str, dst_shard: int) -> int:
+        """Move one cluster model to another shard, live (no restart, no
+        lost updates).  Returns the new ownership epoch; the flat store
+        raises ``RuntimeError``."""
+        return self.store.migrate_cluster(cluster_key, dst_shard)
+
+    def rebalance(self) -> list[tuple[str, int, int]]:
+        """Apply ``FedCCLConfig.rebalance_policy`` once; returns the
+        migrations performed as ``(cluster_key, dst_shard, epoch)``.
+
+        Policy ``"load"``: read per-shard submit counts from
+        ``agg_stats()["shard_enqueued"]``; when the hottest shard carries
+        more than ``rebalance_hot_ratio`` times the coldest shard's
+        submits, migrate the hot shard's deepest-queued cluster to the
+        cold shard.  ``None`` never migrates."""
+        policy = self.cfg.rebalance_policy
+        if policy is None:
+            return []
+        if policy != "load":
+            raise ValueError(f"unknown rebalance_policy {policy!r} "
+                             "(expected None or 'load')")
+        enqueued = self.store.agg_stats().get("shard_enqueued")
+        if not enqueued or len(enqueued) < 2:
+            return []
+        hot = max(range(len(enqueued)), key=lambda i: enqueued[i])
+        cold = min(range(len(enqueued)), key=lambda i: enqueued[i])
+        if hot == cold or (enqueued[hot] <=
+                           self.cfg.rebalance_hot_ratio
+                           * max(enqueued[cold], 1)):
+            return []
+        keys = self.store.shard_cluster_keys(hot)
+        if not keys:
+            return []
+        key = max(keys, key=lambda k: self.store.pending_depth("cluster", k))
+        epoch = self.store.migrate_cluster(key, cold)
+        return [(key, cold, epoch)]
 
     # ----------------------------------------------------- Predict & Evolve
     def join(self, spec: ClientSpec) -> tuple[list[str], object]:

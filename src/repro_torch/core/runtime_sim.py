@@ -7,6 +7,11 @@ t + d — by which time other clients may have updated the same model, which
 exercises the weighted-aggregation path rather than the sequential fast
 path.  Seeded through numpy exactly as the reference, so the same seed gives
 the same schedule in both packages.
+
+Works against ``ModelStore`` and ``ShardedModelStore`` alike: the sim only
+speaks the store protocol (``drain``/``effective_round``/``drain_secure``),
+so a sharded store routes global drains through the two-level fold;
+``stats()`` then also reports the shard fill balance.
 """
 
 from __future__ import annotations
@@ -175,6 +180,13 @@ class AsyncSimRuntime:
         if self.store.batch_aggregation:
             out["coalesce_factor"] = self.store.coalesce_factor()
             out["max_queue_depth"] = self.store.max_queue_depth
+        if hasattr(self.store, "n_shards"):
+            # sharded store: surface the shard fill balance so schedule skew
+            # (all clients in one cluster -> one hot shard) is visible
+            sharded = self.store.agg_stats()
+            out["shards"] = sharded["shards"]
+            out["global_drains"] = sharded["global_drains"]
+            out["shard_enqueued"] = sharded["shard_enqueued"]
         if self.store.masker is not None:
             out["secure_rounds"] = self.store.n_secure_rounds
             out["secure_recoveries"] = self.store.n_secure_recoveries

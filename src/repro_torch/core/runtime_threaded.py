@@ -8,8 +8,13 @@ clients: submits enqueue without blocking and one server drain thread
 (``server-drain``) folds each model's queue into one coalesced N-way
 aggregation per sweep (Algorithm-2-equivalent; see
 ``coalesced_aggregate``), backing off from ``drain_poll`` up to
-``drain_poll_max`` while its sweeps find nothing.  Shutdown is bounded: the
-drain worker is joined within the store's ``drain_timeout_s`` (overridable
+``drain_poll_max`` while its sweeps find nothing.
+
+With a ``ShardedModelStore`` the single drain thread becomes one worker per
+shard (``drain-shard-{k}``, each sweeping only its shard's cluster models)
+plus one global worker (``drain-global``) running the two-level global
+fold, so drains of different clusters share no lock.  Shutdown is bounded:
+every worker is joined within the store's ``drain_timeout_s`` (overridable
 via ``join_timeout``), and a stuck worker counts a drain timeout on the
 store (``agg_stats()["drain_timeouts"]``) and raises instead of hanging the
 run.
@@ -22,16 +27,14 @@ continuous drain thread is allowed to run mid-round.
 
 Streams: every thread launches the port's kernels on its own current
 stream, which is the device's default stream unless a caller sets another.
-So the client threads and the drain thread share one stream, and a tensor
-that a client thread makes and the drain thread folds needs no event; the
-kernels' launch counters and kept scratch are guarded by
+So the client threads and the drain threads share one stream, and a
+tensor that a client thread makes and a drain thread folds needs no event;
+the kernels' launch counters and kept scratch are guarded by
 ``kernels.build``'s locks.  Per-thread streams (with events and
 ``record_stream``) are a later item of ROADMAP.md.
 
-The reference's per-shard drain workers and process pump
-(``scatter_drains``, ``drain_shard``) come with the scale-out server tiers
-of ROADMAP.md's module queue; this port drives the single-lock
-``ModelStore`` only.
+The reference's process pump (``scatter_drains``) comes with the process
+and TCP server tiers of ROADMAP.md's module queue.
 """
 
 from __future__ import annotations
@@ -94,8 +97,9 @@ class AsyncThreadedRuntime:
             self.errors.append(e)
 
     def _drain_loop(self, drain_fn, stop: threading.Event):
-        """The drain worker: sweep the store until stopped, then one final
-        sweep so nothing a client enqueued before exiting is left behind."""
+        """One drain worker (the store's, a shard's or the global tier's):
+        sweep its slice of the store until stopped, then one final sweep so
+        nothing a client enqueued before exiting is left behind."""
         try:
             delay = self.drain_poll
             while not stop.is_set():
@@ -109,9 +113,18 @@ class AsyncThreadedRuntime:
             self.errors.append(e)
 
     def _start_drain_workers(self, stop: threading.Event):
-        self.drain_workers = [threading.Thread(
-            target=self._drain_loop, args=(self.store.drain_all, stop),
-            name="server-drain")]
+        """Sharded store: one pump per shard and one for the two-level
+        global fold.  Single-queue store: one ``drain_all`` sweep."""
+        if hasattr(self.store, "drain_shard"):
+            fns = [(f"drain-shard-{k}",
+                    (lambda k=k: self.store.drain_shard(k)))
+                   for k in range(self.store.n_shards)]
+            fns.append(("drain-global", self.store.drain_global))
+        else:
+            fns = [("server-drain", self.store.drain_all)]
+        self.drain_workers = [
+            threading.Thread(target=self._drain_loop, args=(fn, stop),
+                             name=name) for name, fn in fns]
         for t in self.drain_workers:
             t.start()
 

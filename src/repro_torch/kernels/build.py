@@ -11,7 +11,9 @@ no fallback to another implementation.
 Thread safety: client threads of the threaded runtime launch kernels
 concurrently.  ``library()`` builds and loads under ``_load_lock`` (one
 thread builds, the others wait for it); ``count`` and ``workspace`` touch
-the wrappers' launch counters and kept scratch under ``_state_lock``.
+the wrappers' launch counters and kept scratch under ``_state_lock``;
+``launch_sized`` runs the launchers that set their kernel's shared-memory
+limit to the call's size under ``_sized_lock``.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ SIGNATURES = {
 _lib = None
 _load_lock = threading.Lock()    # the library's build and load
 _state_lock = threading.Lock()   # launch counters and kept workspaces
+_sized_lock = threading.Lock()   # set-the-limit-then-launch launchers
 
 
 def find_nvcc() -> str:
@@ -144,6 +147,20 @@ def library() -> ctypes.CDLL:
             lib.kernels_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def launch_sized(name: str, *args) -> int:
+    """Call the library's launch function ``name`` under ``_sized_lock``:
+    for the launchers that set their kernel's dynamic shared-memory limit
+    to this call's size and then launch (the LSTM sequence scans,
+    ``local_attn.cu``, ``ssd_chunk``).  The limit belongs to the kernel,
+    not to the thread, so a thread launching the same kernel at a smaller
+    size could lower it between another thread's set and launch, and that
+    launch would fail with "invalid argument" (two client threads running
+    the encoder's and the decoder's scans did, on an H100)."""
+    fn = getattr(library(), name)
+    with _sized_lock:
+        return fn(*args)
 
 
 def count(module: str, *counters: str) -> None:

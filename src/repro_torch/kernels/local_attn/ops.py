@@ -143,7 +143,8 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     vp = F.pad(v, (0, 0, 0, pad_k)) if pad_k else v
     qp, kp, vp = qp.contiguous(), kp.contiguous(), vp.contiguous()
     out = torch.empty_like(qp)
-    status = build.library().local_attn_launch(
+    status = build.launch_sized(
+        "local_attn_launch",
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), B, H, KV,
         S + pad_q, T + pad_k, T, D, float(scale), int(bool(causal)),
         int(window), _DTYPES[q.dtype], build.stream_handle(q.device))

@@ -220,7 +220,8 @@ def lstm_seq_fwd(xs, h0, c0, wx, wh, b, save: bool = True):
     h_t, c_t = torch.empty_like(h0), torch.empty_like(c0)
     if batch == 0:
         return ys, cseq, gates, h_t, c_t
-    status = build.library().lstm_seq_fwd_launch(
+    status = build.launch_sized(
+        "lstm_seq_fwd_launch",
         xs.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(),
         wh.data_ptr(), b.data_ptr(), steps, batch, in_dim, hidden,
         seq_cluster(hidden, in_dim), seq_tile(batch), ys.data_ptr(),
@@ -257,7 +258,8 @@ def lstm_seq_bwd(dys, dh_t, dc_t, gates, cseq, c0, wh):
     dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
     if batch == 0:
         return da, dh0, dc0
-    status = build.library().lstm_seq_bwd_launch(
+    status = build.launch_sized(
+        "lstm_seq_bwd_launch",
         dys.data_ptr() if dys is not None else None, dh_t.data_ptr(),
         dc_t.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
         wh.data_ptr(), steps, batch, hidden, seq_cluster(hidden, 1),

@@ -87,7 +87,8 @@ def ssd_intra_chunk(xdt, dA, B, C):
     if y.numel() == 0 or states.numel() == 0:      # empty sums
         return y.zero_(), states.zero_()
     hb = heads_per_block(b * c, h, g, _sm_count(xdt.device.index), l)
-    status = build.library().ssd_chunk_launch(
+    status = build.launch_sized(
+        "ssd_chunk_launch",
         xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), b, c, l, h,
         g, p, n, hb, y.data_ptr(), states.data_ptr(),
         build.stream_handle(xdt.device))

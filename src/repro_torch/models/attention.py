@@ -5,7 +5,7 @@ The cache-free (full-sequence) forward goes through the ``local_attn``
 kernel (``kernels/local_attn``; its plain version on the CPU); decode uses
 the einsum ``_sdpa`` over the cache, as in the reference.  MLA, rolling
 caches and softcapped attention are not ported yet (``ROADMAP.md`` §1,
-item 1) and raise.
+the entry "The rest of the LLM side") and raise.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ from repro_torch.models.layers import apply_rope, einsum, softcap
 from repro_torch.sharding.logical import ParamSpec, constrain
 
 NEG_INF = -2.0**30  # large-negative instead of -inf: keeps softmax NaN-free
-NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md §1, item 1: MoE, "
-              "MLA and RG-LRU with rolling caches)")
+NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md §1, \"The rest "
+              "of the LLM side\": MoE, MLA and RG-LRU with rolling caches)")
 
 
 # ---------------------------------------------------------------------------

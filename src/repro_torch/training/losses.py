@@ -6,8 +6,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md §1, item 1: the "
-              "frontends, MoE and MTP)")
+NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md §1, \"The rest "
+              "of the LLM side\": the frontends, MoE and MTP)")
 
 
 def softmax_cross_entropy(logits, labels, mask=None):

@@ -23,7 +23,7 @@ from repro.core.protocol import ClientSpec as JaxClientSpec
 from repro_torch.core import aggregation as agg
 from repro_torch.core.fedccl import ClusterSpaceConfig, FedCCL, FedCCLConfig
 from repro_torch.core.protocol import ClientSpec
-from repro_torch.core.store import ModelStore
+from repro_torch.core.store import ModelStore, ShardedModelStore
 from repro_torch.data.solar import generate_fleet
 from repro_torch.data.windows import make_windows, split_windows
 from repro_torch.models.lstm import SolarForecaster
@@ -251,9 +251,8 @@ def test_privacy_report_has_the_reference_shape(privacy):
 
 
 @pytest.mark.parametrize("option", [
-    {"server_shards": 2}, {"server_processes": 2},
-    {"server_hosts": ("localhost:1",)}, {"fetch_from_workers": True},
-    {"telemetry": True}])
+    {"server_processes": 2}, {"server_hosts": ("localhost:1",)},
+    {"fetch_from_workers": True}, {"telemetry": True}])
 def test_later_slices_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
@@ -327,3 +326,24 @@ def test_training_and_folds_leave_shared_tensors_unchanged():
     assert secure.drain_secure("global", None, 0, ids) == 2
     assert secure.params("global") is not init
     assert same(init, init_copy) and same(b.local_params, init_copy)
+
+    # the two-level fold of the sharded store: a lone fast-path survivor is
+    # the client's own tree, a fold over both shards builds a new one, and
+    # neither changes a tensor it read
+    sharded = ShardedModelStore(init, n_shards=2, batch_aggregation=True)
+    snap, meta = a.fetch(sharded, "global")
+    snap_copy = frozen(snap)
+    ups = [a.train_update(snap, meta), b.train_update(snap, meta)]
+    a.submit(sharded, "global", None, *ups[0])
+    assert sharded.drain_global() == 1
+    assert sharded.params("global") is ups[0][0]
+    ups.append(a.train_update(snap, meta))
+    copies = [frozen(u[0]) for u in ups]
+    for u in ups[1:]:
+        b.submit(sharded, "global", None, *u)
+    assert sharded.drain_global() == 2
+    assert sharded.agg_stats()["global_partials"] == 2
+    folded = sharded.params("global")
+    assert all(folded is not u[0] for u in ups)
+    assert all(same(u[0], c) for u, c in zip(ups, copies, strict=True))
+    assert same(snap, snap_copy) and same(init, init_copy)

@@ -49,6 +49,7 @@ from repro_torch.kernels import build, launch_counts, reset_launch_counts
 from repro_torch.kernels.dp_clip_noise import ops as dp_ops
 from repro_torch.kernels.ewc_update import ops as ewc_ops
 from repro_torch.kernels.fedavg_agg import ops as agg_ops
+from repro_torch.kernels.lstm_cell import ops as lstm_ops
 from repro_torch.models.lstm import SolarForecaster
 from repro_torch.training.fed_solar import make_solar_fns, make_train_fn
 from repro_torch.utils.tree import params_from_numpy, tree_leaves
@@ -383,6 +384,39 @@ def test_counters_and_workspaces_change_only_under_the_lock(
         worker.join(10)
         assert done.is_set() and dp_ops.launches == launched
     assert list(dp_ops._workspaces) == [(None, 0)]
+
+
+@pytest.mark.parametrize("scan", ["forward", "reverse"])
+def test_sized_launches_wait_for_the_lock(cuda_route_on_cpu, scan):
+    """The sequence scans' launchers set their kernel's shared-memory limit
+    to the call's size and then launch; with the encoder's and the
+    decoder's scans in two threads, one could lower the limit between the
+    other's set and launch ("invalid argument" on the card).  What is held
+    here is that a scan's launch waits for ``build``'s sized-launch lock."""
+    t, b, i, h = 3, 2, 10, 128
+    z = torch.zeros
+    if scan == "forward":
+        def call():
+            lstm_ops.lstm_seq_fwd(z(t, b, i), z(b, h), z(b, h), z(i, 4 * h),
+                                  z(h, 4 * h), z(4 * h))
+    else:
+        def call():
+            lstm_ops.lstm_seq_bwd(z(t, b, h), z(b, h), z(b, h),
+                                  z(t, b, 4 * h), z(t, b, h), z(b, h),
+                                  z(h, 4 * h))
+    done = threading.Event()
+
+    def worker():
+        call()
+        done.set()
+
+    with build._sized_lock:
+        th = threading.Thread(target=worker)
+        th.start()
+        assert not done.wait(0.3)                # blocked on the lock
+        assert lstm_ops.launches == 0
+    th.join(10)
+    assert done.is_set() and lstm_ops.launches == 1
 
 
 def test_library_loads_once_under_concurrent_first_use(monkeypatch,
