@@ -26,7 +26,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
              views off 16-byte alignment) and one device kernel a call;
              ``dp_clip_noise``'s bits on two runs on both routes (a
              cluster at T 141,953, a cooperative grid at (1<<20)+3) and on
-             a view off alignment, and one device kernel a call;
+             a view off alignment, and one device kernel a call (for
+             both: one call captured in a CUDA graph is that one kernel,
+             and torch.profiler counts one a call over 20 calls where it
+             records the whole window);
              ssd_chunk with per-group B and C at two groups, n 160, p 80
              (chunks of 16 and 256) against its plain version and f64;
              local_attn at head dims 80 (f32, bf16) and 192 (bf16),
@@ -82,7 +85,31 @@ Phases, each fatal on failure (non-zero exit, no final line):
              submits/s reported; and ``save_store`` of the sharded store,
              the same bytes from the card as from a CPU copy, loaded back
              to the card bit for bit.
-8. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
+8. process — the process and TCP server tiers
+             (``FedCCLConfig(server_processes=2)``, ``server_hosts``) at
+             the main path's full width, fleet, rounds and epochs,
+             counters reset before each counted run: the sim runtime
+             batched on the in-process emulation (its workers fold in this
+             process) against the thread-sharded store at 2 shards (stats
+             equal but for the process fields, metas equal, params within
+             1e-5 x max(1, max|p|), fold launches equal to what the
+             recorded folds imply, the process store's global merge and
+             its workers' partial reductions included); the threaded
+             runtime on two spawned workers folding on the card (their
+             cold starts, their pids listed by nvidia-smi as compute
+             processes, exact accounting with 0 drain timeouts and 0
+             respawns), batched and secure + DP (the cluster rounds fold
+             in the workers, the global ones here); two subprocess shard
+             servers (``python -m repro_torch.launch.shard_server --device
+             cuda --port 0``) under ``server_hosts`` with
+             ``fetch_from_workers`` (fetch counts by kind, no fallback,
+             fetched bytes equal to the store's) and an ``owner|replica``
+             pair read after an ordered barrier; two shard servers on
+             threads of this process (fold launches = implied, secure
+             rounds = fold launches); and ``benchmarks/multiproc_store.py``'s
+             mixed storm with the forecaster's tree on the process and the
+             TCP store (submits/s, fetches/s, coalesce factor, wire bytes).
+9. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
              tokens) and gemma-2b (2 x 2048) at full width and depth in
              bf16, counters reset before and read after each run: exactly
              one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
@@ -95,7 +122,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              (examples/serve_batched.py's mix), no kernel launched, and
              ragged equal to independent decoding (held in f32, reported
              in bf16).
-9. agree   — small runs on CUDA (kernels) and on the CPU (plain versions)
+10. agree  — small runs on CUDA (kernels) and on the CPU (plain versions)
              from the same initial weights, without privacy, with DP and
              secure aggregation, and with DP alone (at a smaller clip, see
              AGREE_DP_CLIP): Table II must agree;
@@ -109,7 +136,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              The LLM path: decode by replay against the kernel forward (f32,
              full width, 4 layers, T 64), and the CUDA loss against the CPU
              loss from the same weights (f32, full width, 2 layers).
-10. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
+11. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
              subprocess on the card: exit 0, Table II printed and, in its
              ``solar_report.json``, finite and inside the system test's
              bounds.
@@ -273,6 +300,71 @@ def device_events(fn, symbols, iters: int, warmup: int) -> tuple[list, int]:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     return [e for e in events if any(sym in e.name for sym in symbols)], \
         len(events)
+
+
+def graph_nodes(fn) -> list[str]:
+    """What one call of ``fn`` puts on the card, without a profiler: the
+    call captured in a CUDA graph, one entry a node of it, each the text
+    CUDA's debug dump gives the node (its kind, a kernel's symbol)."""
+    import re
+    import tempfile
+    import warnings
+
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()            # scratch a wrapper keeps per stream, made uncaptured
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # the dump reads it
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        with warnings.catch_warnings():     # torch announces the dump
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        require(os.path.exists(path), "CUDA graph debug dump wrote nothing")
+        text = Path(path).read_text()
+    graph.reset()
+    # a node is declared as "graph_<g>_node_<n>"[...]; an edge has "->"
+    starts = [m.start() for m in
+              re.finditer(r'"graph_\d+_node_\d+"\s*\[', text)]
+    return [text[a:b] for a, b in zip(starts, starts[1:] + [len(text)])]
+
+
+def require_one_kernel_a_call(name, fn, calls: int = 20,
+                              windows: int = 4) -> float:
+    """Hold that a call of ``fn`` is one device kernel of ``name``'s own
+    and nothing else: one call captured in a CUDA graph is one node, that
+    kernel; and torch.profiler's device events over ``calls`` calls are
+    ``calls`` events, each that kernel.  A profiler window that records
+    fewer events than calls has missed records (CUPTI can drop a window's
+    kernels; the calls ran, their outputs are held above): the window is
+    taken again, up to ``windows`` times, and the graph carries the
+    proof if no window is whole.  Returns the kernels a call: the whole
+    window's, else the graph's."""
+    symbols = KERNEL_SYMBOLS[name]
+    nodes = graph_nodes(fn)
+    require(len(nodes) == 1 and any(s in nodes[0] for s in symbols),
+            f"{name}: one call captured in a CUDA graph is {len(nodes)} "
+            f"nodes, expected one kernel of {symbols}: "
+            f"{[n[:160] for n in nodes]}")
+    for window in range(1, windows + 1):
+        own, events = device_events(fn, symbols, iters=calls, warmup=1)
+        print(f"[kernels] {name}: one call is one graph node, its kernel; "
+              f"profiler window {window}: {len(own)} kernel launches in "
+              f"{calls} calls ({events} device events in all)")
+        if events >= calls:
+            require(len(own) == calls and events == calls,
+                    f"{name}: {len(own)} of its kernels and {events} device "
+                    f"events in {calls} calls, expected one each")
+            return len(own) / calls
+    print(f"[kernels] {name}: the profiler missed records in {windows} "
+          "windows; the graph capture holds the one kernel a call")
+    return float(len(nodes))
 
 
 def device_ms(name, fn, iters: int = 50, warmup: int = 3,
@@ -703,14 +795,8 @@ def check_ewc(dev, gen):
           "141,955, on views 4 and 12 bytes past 16-byte alignment, with "
           "and without a Fisher diagonal")
     g, p, a = (torch.randn(t, generator=gen, device=dev) for _ in range(3))
-    own, events = device_events(
-        lambda: ops.ewc_penalty_grad_flat(lam, g, p, a),
-        KERNEL_SYMBOLS["ewc_update"], iters=20, warmup=1)
-    own = len(own)
-    print(f"[kernels] ewc_update: {own} kernel launches in 20 calls "
-          f"({events} device events in all)")
-    require(own == 20 and events == 20, f"ewc_update: {own} of its kernels "
-            f"and {events} device events in 20 calls, expected one each")
+    per_call = require_one_kernel_a_call(
+        "ewc_update", lambda: ops.ewc_penalty_grad_flat(lam, g, p, a))
     nbytes, flops = 4 * (3 * t + t), 5 * t
     bms, by = bound(nbytes, flops)
     return {"max_abs_err": err, "shape": f"T={t}, F=None",
@@ -719,7 +805,7 @@ def check_ewc(dev, gen):
                 "ewc_update", lambda: ops.ewc_penalty_grad_flat(lam, g, p, a)),
             "plain_ms": cuda_ms(lambda: ewc_ref(lam, g, p, a)),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "launches_a_call": own / 20}
+            "launches_a_call": per_call}
 
 
 def check_dp(dev, gen):
@@ -762,15 +848,8 @@ def check_dp(dev, gen):
     t = SOLAR_PARAMS
     d = torch.randn(t, generator=gen, device=dev) * 0.05
     noise = torch.randn(t, generator=gen, device=dev)
-    own, events = device_events(lambda: ops.privatize_flat(d, noise, 5.0, 0.3),
-                                KERNEL_SYMBOLS["dp_clip_noise"], iters=20,
-                                warmup=1)
-    own = len(own)
-    print(f"[kernels] dp_clip_noise: {own} kernel launches in 20 calls "
-          f"({events} device events in all)")
-    require(own == 20 and events == 20, f"dp_clip_noise: {own} of its "
-            f"kernels and {events} device events in 20 calls, expected one "
-            "each")
+    per_call = require_one_kernel_a_call(
+        "dp_clip_noise", lambda: ops.privatize_flat(d, noise, 5.0, 0.3))
     wide = (1 << 20) + 3
     dw = torch.randn(wide, generator=gen, device=dev) * 0.05
     nw = torch.randn(wide, generator=gen, device=dev)
@@ -778,14 +857,14 @@ def check_dp(dev, gen):
     # for the norm, 3T for the output
     bms, by = bound(12 * t, 5 * t)
     return {"max_abs_err": err, "shape": f"T={t}, clip 5.0, m 0.3",
-            "route": ops.route(t),
+            "kernel_route": ops.route(t),
             "ms": cuda_ms(lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
             "device_ms": device_ms(
                 "dp_clip_noise",
                 lambda: ops.privatize_flat(d, noise, 5.0, 0.3)),
             "plain_ms": cuda_ms(lambda: dp_clip_noise_ref(d, noise, 5.0, 0.3)),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "launches_a_call": own / 20,
+            "launches_a_call": per_call,
             "wide_shape": f"T={wide}", "wide_route": ops.route(wide),
             "wide_ms": cuda_ms(lambda: ops.privatize_flat(dw, nw, 5.0, 0.3)),
             "wide_device_ms": device_ms(
@@ -1574,15 +1653,18 @@ def threaded_batched(dev, tag, **extra):
     return counts, routes, idle
 
 
-def threaded_secure(dev, tag, **extra):
+def threaded_secure(dev, tag, workers_fold=False, **extra):
     """The threaded runtime with secure aggregation and DP at full width,
     counters set to 0 before the run: exact accounting, secure rounds =
     rounds x (1 + clusters) = fold launches, DP releases = dp_clip_noise
-    launches = updates, epsilon the closed form.  Returns (counts,
-    routes)."""
+    launches = updates, epsilon the closed form.  ``workers_fold``: the
+    cluster models' rounds fold in worker processes, whose launches this
+    process does not count; its own fold launches are then the global
+    model's rounds.  Returns (counts, routes)."""
     rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
     fed = threaded_fed(dev, hidden, **PRIVACY, **extra)
     stats, counts, routes, wall = counted_fed(fed, rounds)
+    fed.shutdown()
     print(f"[{tag}] secure + DP ({json.dumps(dict(PRIVACY, **extra))}): "
           f"{wall:.1f} s ({wall:.4f} s); agg_stats {json.dumps(stats)}")
     print(f"[{tag}] secure + DP: launches {json.dumps(counts)}; routes and "
@@ -1593,9 +1675,16 @@ def threaded_secure(dev, tag, **extra):
     require(stats["secure_rounds"] == want_rounds,
             f"{tag} secure: {stats['secure_rounds']} secure rounds, "
             f"expected {want_rounds}")
-    require(counts["fedavg_agg"] == stats["secure_rounds"],
-            f"{tag} secure: {counts['fedavg_agg']} folds for "
-            f"{stats['secure_rounds']} secure rounds")
+    here = rounds if workers_fold else stats["secure_rounds"]
+    require(counts["fedavg_agg"] == here,
+            f"{tag} secure: {counts['fedavg_agg']} folds in this process for "
+            f"{stats['secure_rounds']} secure rounds, expected {here}")
+    if workers_fold:
+        print(f"[{tag}] secure + DP: {here} global rounds folded here, "
+              f"{stats['secure_rounds'] - here} cluster rounds folded in "
+              f"the workers (one sdrained reply each); respawns "
+              f"{stats['respawns']}")
+        require(stats["respawns"] == 0, f"{tag} secure: a worker respawned")
     priv = fed.privacy_report()
     releases = sum(r["steps"] for r in priv["per_client"].values())
     require(counts["dp_clip_noise"] == releases == stats["updates"],
@@ -1636,24 +1725,39 @@ TWO_LEVEL = dict(shards=3, per_shard=9, max_width=4)
 
 
 class recording_folds:
-    """Record the scalar half of every fold the stores make while the block
-    runs (base meta, the batch's metas and deltas, by shard for the
-    two-level fold), from which ``implied_launches`` counts the N-way sums
-    on the CPU."""
+    """Record the scalar half of every fold the stores and shard workers of
+    this process make while the block runs (base meta, the batch's metas
+    and deltas, by shard for the two-level fold; for the process tier's
+    global merge the plan's metas, and each worker's ``greduce`` weights),
+    from which ``implied_launches`` counts the N-way sums on the CPU.
+    ``merge_width`` is the process store's ``max_coalesce``, which bounds
+    its merge and its workers' partial reductions."""
+
+    def __init__(self, merge_width: int = 0):
+        self.merge_width = merge_width
 
     def __enter__(self):
+        import repro_torch.core.server_proc as server_proc
         import repro_torch.core.store as store
 
         self.folds = []
         self._saved = (store.coalesced_aggregate,
-                       store.two_level_coalesced_aggregate)
-        flat, two = self._saved
+                       store.two_level_coalesced_aggregate,
+                       server_proc.coalesced_aggregate, store.plan_coalesce,
+                       server_proc.ShardWorker._greduce)
+        flat, two, worker_flat, plan, greduce = self._saved
 
         def rec_flat(base_params, base_meta, updates, cfg):
             updates = list(updates)
             self.folds.append(("flat", base_meta,
                                [(m, d) for _, m, d in updates], None, 0))
             return flat(base_params, base_meta, updates, cfg)
+
+        def rec_worker_flat(base_params, base_meta, updates, cfg):
+            updates = list(updates)
+            self.folds.append(("flat", base_meta,
+                               [(m, d) for _, m, d in updates], None, 0))
+            return worker_flat(base_params, base_meta, updates, cfg)
 
         def rec_two(base_params, base_meta, batches, cfg, *, seqs=None,
                     max_width=0):
@@ -1663,15 +1767,34 @@ class recording_folds:
             return two(base_params, base_meta, batches, cfg, seqs=seqs,
                        max_width=max_width)
 
+        def rec_plan(base_meta, meta_deltas, cfg):
+            # only the process store's global merge plans in the store
+            # module; the other folds plan inside aggregation.py
+            meta_deltas = list(meta_deltas)
+            self.folds.append(("merge", base_meta, meta_deltas, None,
+                               self.merge_width))
+            return plan(base_meta, meta_deltas, cfg)
+
+        def rec_greduce(worker, pairs):
+            self.folds.append(("greduce", None,
+                               sum(float(w) != 0.0 for _, w in pairs), None,
+                               worker.max_coalesce))
+            return greduce(worker, pairs)
+
         store.coalesced_aggregate = rec_flat
         store.two_level_coalesced_aggregate = rec_two
+        server_proc.coalesced_aggregate = rec_worker_flat
+        store.plan_coalesce = rec_plan
+        server_proc.ShardWorker._greduce = rec_greduce
         return self.folds
 
     def __exit__(self, *exc):
+        import repro_torch.core.server_proc as server_proc
         import repro_torch.core.store as store
 
-        (store.coalesced_aggregate,
-         store.two_level_coalesced_aggregate) = self._saved
+        (store.coalesced_aggregate, store.two_level_coalesced_aggregate,
+         server_proc.coalesced_aggregate, store.plan_coalesce,
+         server_proc.ShardWorker._greduce) = self._saved
         return False
 
 
@@ -1687,16 +1810,42 @@ def chunk_sums(n: int, width: int) -> tuple[int, int]:
     return n, sums
 
 
+def reduce_sums(n: int, width: int) -> int:
+    """N-way sums of one partial reduction of ``n`` entries of nonzero
+    mass (a worker's ``greduce``, the process store's merge): the chunks
+    of ``chunked_convex_reduce``, then one sum if more than one entry is
+    left."""
+    left, sums = chunk_sums(n, max(width, 2) if width > 0 else 0)
+    return sums + (left > 1)
+
+
 def implied_launches(folds) -> int:
     """The fold kernel launches the recorded folds imply, from their
     metadata alone: a flat fold with more than one surviving set is one
     sum; a two-level fold makes one sum per per-shard chunk of more than
     one member and one per merge of more than one entry (none for a lone
-    survivor).  Each sum here has at most 64 sets: one launch."""
+    survivor); the process store's global drain makes each worker's
+    reduction of its nonzero-weight members and the parent's merge of the
+    base (when its weight is nonzero) with the nonempty partials.  Each
+    sum here has at most 64 sets: one launch."""
     from repro_torch.core.aggregation import plan_coalesce
 
     total = 0
+    merge = None          # the open process-tier global drain
     for kind, base, batches, seqs, max_width in folds:
+        if kind == "greduce":
+            total += reduce_sums(batches, max_width)
+            merge["partials"] += batches > 0
+            continue
+        if merge is not None:
+            total += reduce_sums(merge["base"] + merge["partials"],
+                                 merge["width"])
+            merge = None
+        if kind == "merge":
+            plan = plan_coalesce(base, batches)
+            merge = {"base": int(plan.weights[0] != 0.0), "partials": 0,
+                     "width": max_width}
+            continue
         if kind == "flat":
             plan = plan_coalesce(base, batches)
             total += sum(w != 0.0 for w in plan.weights) > 1
@@ -1724,6 +1873,9 @@ def implied_launches(folds) -> int:
             else:
                 entries, sums = chunk_sums(entries, width)
                 total += sums
+    if merge is not None:
+        total += reduce_sums(merge["base"] + merge["partials"],
+                             merge["width"])
     return total
 
 
@@ -1908,16 +2060,35 @@ def stress_draws(n_writers, per_writer, n_clusters):
     return draws, want
 
 
-def stress_store(name, store, pools, draws, want):
+def stress_store(name, store, pools, draws, want, fetchers=(0, 0),
+                 tag="sharded"):
     """One writer thread a pool, each submitting a cluster and a global
     update per draw, against the store's drain workers
-    (``AsyncThreadedRuntime``); the clock stops after the workers' final
-    sweeps.  Exact accounting; returns the row it prints."""
+    (``AsyncThreadedRuntime``), beside ``fetchers`` = (threads, fetches
+    each) serving ``request_model`` + ``packb`` as
+    ``benchmarks/multiproc_store.py``'s fetchers do; the clock stops after
+    the workers' final sweeps.  Exact accounting; returns the row it
+    prints."""
     import threading
+    import numpy as np
     import torch
+    from repro_torch.checkpoint.msgpack_ckpt import packb
     from repro_torch.core.aggregation import ModelMeta, UpdateDelta
     from repro_torch.core.runtime_threaded import AsyncThreadedRuntime
     from repro_torch.kernels.fedavg_agg import ops
+
+    n_fetchers, per_fetcher = fetchers
+    keys = sorted({k for d in draws for k, _ in d})
+
+    def fetcher(idx):
+        frng = np.random.default_rng(20_000 + idx)
+        for _ in range(per_fetcher):
+            if frng.random() < 0.5:
+                params, _ = store.request_model("global")
+            else:
+                params, _ = store.request_model(
+                    "cluster", keys[int(frng.integers(len(keys)))])
+            packb(params)        # wire-serialize the served snapshot
 
     def writer(idx):
         pool = pools[idx]
@@ -1931,7 +2102,9 @@ def stress_store(name, store, pools, draws, want):
     rt = AsyncThreadedRuntime([], store, drain_poll=1e-4, join_timeout=60.0)
     stop = threading.Event()
     threads = [threading.Thread(target=writer, args=(i,))
-               for i in range(len(pools))]
+               for i in range(len(pools))] + \
+        [threading.Thread(target=fetcher, args=(i,))
+         for i in range(n_fetchers)]
     torch.cuda.synchronize()
     before = ops.launches_leaves
     t0 = time.perf_counter()
@@ -1964,10 +2137,16 @@ def stress_store(name, store, pools, draws, want):
            "coalesce_factor": stats["coalesce_factor"],
            "max_queue_depth": stats["max_queue_depth"],
            "fold_launches": ops.launches_leaves - before}
-    for k in ("global_drains", "global_partials"):
+    if n_fetchers:
+        row["fetches"] = n_fetchers * per_fetcher
+        row["fetches_per_s"] = row["fetches"] / wall
+    for k in ("global_drains", "global_partials", "transport", "respawns",
+              "wire_tx_bytes", "wire_rx_bytes"):
         if k in stats:
             row[k] = stats[k]
-    print(f"[sharded] stress {json.dumps(row)}; every model's round and "
+    require(stats.get("respawns", 0) == 0, f"stress {name}: a worker "
+                                           "respawned")
+    print(f"[{tag}] stress {json.dumps(row)}; every model's round and "
           f"samples exact, no queue left; card: {card_line()}")
     return row
 
@@ -2073,6 +2252,358 @@ def phase_sharded(dev, flat_idle) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------------ phase 8
+# the process and TCP server tiers: 2 workers, batched at the threaded
+# runs' max_coalesce; the store stress at benchmarks/multiproc_store.py's
+# shape (4 writers x 100, 4 fetchers x 5,000, 16 clusters, max_coalesce 16)
+PROCESS = dict(server_processes=2, batch_aggregation=True, max_coalesce=8)
+# the sim's stats keys only a process-sharded store reports
+PROC_FIELDS = ("processes", "respawns", "drain_timeouts")
+MP_STRESS = dict(writers=4, per_writer=100, fetchers=4, per_fetcher=5000,
+                 clusters=16, shards=2, max_coalesce=16, pool=8)
+
+
+def compute_apps() -> list:
+    """The card's compute processes as ``nvidia-smi --query-compute-apps``
+    lists them: ``[(pid, used memory), ...]``.  Inside the chip's
+    container it lists every process under pid 1, so a process is shown
+    by the count of entries, not by its pid."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return [tuple(x.strip() for x in line.split(",", 1))
+            for line in out.stdout.strip().splitlines() if "," in line]
+
+
+def require_on_card(pids, before, what) -> list:
+    """The processes ``pids`` hold a CUDA context: nvidia-smi lists each
+    pid among the compute processes or, where it cannot see them (a
+    container's pid namespace), lists one more entry for each of them
+    than ``before`` they started."""
+    apps = compute_apps()
+    listed = {p for p, _ in apps}
+    seen = [pid for pid in pids if str(pid) in listed]
+    print(f"[process] {what}: pids {pids}; nvidia-smi compute apps before "
+          f"{before}, now {apps}")
+    if seen:
+        require(len(seen) == len(pids), f"{what}: pids "
+                f"{sorted(set(pids) - set(seen))} not listed by nvidia-smi")
+    else:
+        require(len(apps) - len(before) >= len(pids),
+                f"{what}: {len(apps) - len(before)} new compute processes "
+                f"on the card for {len(pids)} pids")
+    return apps
+
+
+class ThreadShardServers:
+    """N shard servers (``repro_torch.launch.shard_server.serve``) on
+    threads of this process, on port 0 and ``dev``, so their folds count
+    in this process's launch counters; ``close`` sends each a
+    ``shutdown``."""
+
+    def __init__(self, n, dev):
+        import threading
+        from repro_torch.launch import shard_server
+
+        self.ports, self.threads = [], []
+        for _ in range(n):
+            ready = threading.Event()
+            port = []
+
+            def announce(line, flush=True, port=port, ready=ready):
+                port.append(int(line.rsplit("port=", 1)[1]))
+                ready.set()
+            t = threading.Thread(target=shard_server.serve,
+                                 args=("127.0.0.1", 0, announce, str(dev)),
+                                 daemon=True)
+            t.start()
+            require(ready.wait(60.0), "a thread-hosted shard server did not "
+                                      "announce")
+            self.ports.append(port[0])
+            self.threads.append(t)
+
+    @property
+    def hosts(self):
+        return [f"127.0.0.1:{p}" for p in self.ports]
+
+    def close(self):
+        import socket
+        from repro_torch.checkpoint.msgpack_ckpt import packb
+        from repro_torch.core.transport import recv_frame, send_frame
+
+        for port, t in zip(self.ports, self.threads, strict=True):
+            with socket.create_connection(("127.0.0.1", port), 10.0) as c:
+                send_frame(c, packb(["shutdown"]))
+                recv_frame(c)
+            t.join(10.0)
+            require(not t.is_alive(), "a shard server thread did not stop")
+
+
+def process_sim(dev):
+    """The sim runtime at full width with ``server_processes=2`` (the
+    in-process emulation: the workers fold in this process) beside the
+    thread-sharded store at 2 shards: stats equal but for the process
+    fields, metas equal, params within 1e-5 x max(1, max|p|), each run's
+    fold launches equal to what its recorded folds imply.  Returns the
+    process run's counts and routes."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    runs = {}
+    for name, extra in (("process", PROCESS), ("sharded", SHARDED)):
+        fed = threaded_fed(dev, hidden, runtime="sim", **extra)
+        with recording_folds(extra["max_coalesce"]) as folds:
+            stats, counts, routes, wall = counted_fed(fed, rounds)
+        implied = implied_launches(folds)
+        print(f"[process] sim, {name} store ({json.dumps(extra)}), hidden "
+              f"{hidden}: {wall:.1f} s ({wall:.4f} s); stats "
+              f"{json.dumps(stats)}; launches {json.dumps(counts)}; "
+              f"{len(folds)} folds recorded, {implied} N-way sums implied")
+        require_sequence_route(counts, routes, f"process sim ({name})")
+        require(counts["fedavg_agg"] == implied,
+                f"process sim ({name}): {counts['fedavg_agg']} fold "
+                f"launches, the recorded folds imply {implied}")
+        runs[name] = (fed, stats, counts, routes)
+    fed, stats, counts, routes = runs["process"]
+    sharded, sstats = runs["sharded"][:2]
+    require(stats["processes"] == 0 and stats["respawns"] == 0
+            and stats["drain_timeouts"] == 0,
+            f"process sim: {stats['respawns']} respawns, "
+            f"{stats['drain_timeouts']} drain timeouts")
+    require({k: v for k, v in stats.items() if k not in PROC_FIELDS}
+            == sstats, f"process sim: stats differ from the thread-sharded "
+            f"run's: {stats} {sstats}")
+    require_same_metas(fed.store, sharded.store, "process sim")
+    gap, top = params_gap(fed.store, sharded.store)
+    agg = fed.store.agg_stats()
+    print(f"[process] sim: stats equal to the thread-sharded run's but for "
+          f"{PROC_FIELDS}, metas equal; params max abs diff {gap:.3e} "
+          f"({'bit-equal' if gap == 0.0 else 'not bit-equal'}; limit "
+          f"{1e-5 * max(1.0, top):.3e}); wire bytes tx {agg['wire_tx_bytes']}"
+          f" rx {agg['wire_rx_bytes']}; fold launches {counts['fedavg_agg']}"
+          f" = implied; card: {card_line()}")
+    require(gap <= 1e-5 * max(1.0, top), f"process sim: params differ from "
+            f"the thread-sharded run's by {gap}")
+    fed.shutdown()
+    return counts, routes
+
+
+def process_threaded(dev):
+    """The threaded runtime with ``server_processes=2``: spawned workers
+    folding on the card.  Batched: construction (the workers' cold
+    starts), the workers listed by nvidia-smi, exact accounting with 0
+    drain timeouts and 0 respawns, wall time.  Then secure + DP, whose
+    cluster rounds fold in the workers.  Returns the two runs' launches
+    and routes in this process."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    before = compute_apps()
+    t0 = time.perf_counter()
+    fed = threaded_fed(dev, hidden, **PROCESS)
+    built = time.perf_counter() - t0
+    handles = [sh.handle for sh in fed.store._proc_shards]
+    pids = [h.proc.pid for h in handles]
+    require_on_card(pids, before, "spawned workers")
+    stats, counts, routes, wall = counted_fed(fed, rounds)
+    workers = [t.name for t in fed._runtime.drain_workers]
+    print(f"[process] threaded, spawned workers ({json.dumps(PROCESS)}), "
+          f"pumps {workers}, hidden {hidden}, {rounds} rounds of "
+          f"{MAIN_PATH['epochs']} epochs: {wall:.1f} s ({wall:.4f} s); "
+          f"FedCCL built in {built:.2f} s, worker cold starts (spawn to "
+          f"ready: interpreter, torch, CUDA context, kernel library) "
+          f"{[round(h.cold_start_s, 3) for h in handles]} s; agg_stats "
+          f"{json.dumps(stats)}; launches here {json.dumps(counts)}")
+    require(workers == ["process-pump"], f"process threaded: pumps {workers}")
+    require_exact_accounting(fed, stats, rounds, "process threaded")
+    require(stats["respawns"] == 0 and fed.store.worker_spawns() == [1, 1],
+            f"process threaded: {stats['respawns']} respawns")
+    require_sequence_route(counts, routes, "process threaded")
+    fed.shutdown()
+    print(f"[process] threaded batched: exact accounting, 0 drain "
+          f"timeouts, 0 respawns; card: {card_line()}")
+    secure = threaded_secure(dev, "process", workers_fold=True,
+                             server_processes=2)
+    return sum_counts((counts, routes), secure)
+
+
+def fetch_pass(fed) -> int:
+    """``model_for`` of every client at its cluster and the global level
+    (served through the read tier); returns the fetches made."""
+    n = 0
+    for c in fed.clients:
+        for level in (["cluster"] if c.cluster_keys else []) + ["global"]:
+            fed.model_for(c.spec.client_id, level)
+            n += 1
+    return n
+
+
+def process_tcp(dev, srv):
+    """``server_hosts`` on two subprocess shard servers folding on the
+    card (``--device cuda``), the threaded runtime with
+    ``fetch_from_workers``: exact accounting, the servers listed by
+    nvidia-smi, fetch counts by kind with no fallback while the servers
+    are up, and fetched bytes equal to the store's; then an
+    ``owner|replica`` pair: a fetch from the replica after an ordered
+    barrier equals the store.  Returns the run's counts and routes."""
+    import torch
+    from repro_torch.checkpoint.msgpack_ckpt import packb
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.aggregation import ModelMeta, UpdateDelta
+    from repro_torch.core.fetch import FetchClient
+    from repro_torch.core.store import ProcessShardedModelStore
+    from repro_torch.models.lstm import SolarForecaster
+
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    extra = dict(server_hosts=tuple(srv.hosts), fetch_from_workers=True,
+                 batch_aggregation=True, max_coalesce=8)
+    fed = threaded_fed(dev, hidden, **extra)
+    stats, counts, routes, wall = counted_fed(fed, rounds)
+    print(f"[process] threaded over TCP (2 servers --device cuda, started "
+          f"in {[round(t, 3) for t in srv.startup_s]} s), hidden {hidden}: "
+          f"{wall:.1f} s ({wall:.4f} s); agg_stats {json.dumps(stats)}; "
+          f"launches here {json.dumps(counts)}")
+    require_exact_accounting(fed, stats, rounds, "tcp threaded")
+    require(stats["respawns"] == 0, "tcp threaded: a server was reconnected")
+    require_sequence_route(counts, routes, "tcp threaded")
+    t0 = time.perf_counter()
+    n = fetch_pass(fed)                 # full
+    fed.run(rounds=1)
+    n += fetch_pass(fed)                # delta or full
+    n += fetch_pass(fed)                # not modified
+    fetch_s = time.perf_counter() - t0
+    fc = fed.fetcher
+    print(f"[process] read tier: {n} fetches around one more round "
+          f"({fetch_s:.3f} s with the round), counts {json.dumps(fc.counts)}"
+          f", tx {fc.tx_bytes} rx {fc.rx_bytes} bytes")
+    require(fc.counts["fallback"] == 0, "read tier: fetches fell back to "
+                                        "the parent")
+    require(sum(fc.counts[k] for k in ("full", "not_modified", "delta"))
+            == n and fc.counts["not_modified"] > 0,
+            f"read tier: counts {fc.counts} for {n} fetches")
+    for level, key in model_keys(fed.store):
+        got, meta = fc.fetch(level, key)
+        want, wmeta = fed.store.request_model(level, key)
+        require(meta == wmeta and packb(got) == packb(want),
+                f"read tier: {level} {key} differs from the store")
+    fed.shutdown()
+    # owner|replica: one shard, the second server mirrors the first
+    fc_model = SolarForecaster(SolarLSTMConfig(hidden_size=hidden))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    store = ProcessShardedModelStore(
+        fc_model.init(gen, dev), ["c0"], device=dev,
+        server_hosts=[f"{srv.hosts[0]}|{srv.hosts[1]}"])
+    for r in range(4):
+        store.handle_model_update("cluster", "c0", fc_model.init(gen, dev),
+                                  ModelMeta(5 + r, 1, 1),
+                                  UpdateDelta(5 + r, 1, 1))
+    store.drain_all()
+    # ordered barrier: mirror pushes are puts on the replica's command
+    # session, so a replying command on that session returns after them
+    for h in store._proc_shards[0].replicas:
+        h.rpc(packb(["ping"]), 30.0)
+    with FetchClient(store, conditional=False, device=dev) as reader:
+        for _ in range(2):              # round-robin: replica, then owner
+            got, meta = reader.fetch("cluster", "c0")
+            want, wmeta = store.request_model("cluster", "c0")
+            require(meta == wmeta and packb(got) == packb(want),
+                    "replica: fetched params differ from the store")
+        require(len(reader._conns) == 2 and reader.counts["fallback"] == 0,
+                f"replica: {len(reader._conns)} endpoints served, "
+                f"{reader.counts['fallback']} fallbacks")
+    rstats = store.agg_stats()
+    store.close()
+    print(f"[process] owner|replica: {rstats['replica_pushes']} mirror "
+          f"pushes; after a ping on the replica's command session, the "
+          f"replica's and the owner's fetches equal the store byte for "
+          f"byte; card: {card_line()}")
+    return counts, routes
+
+
+def process_thread_hosted(dev):
+    """Two shard servers on threads of this process, on the card: the
+    threaded runtime batched (fold launches = what the recorded folds
+    imply) and secure + DP (fold launches = secure rounds).  Returns the
+    runs' counts and routes."""
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    servers = ThreadShardServers(2, dev)
+    try:
+        extra = dict(server_hosts=tuple(servers.hosts),
+                     batch_aggregation=True, max_coalesce=8)
+        fed = threaded_fed(dev, hidden, **extra)
+        with recording_folds(extra["max_coalesce"]) as folds:
+            stats, counts, routes, wall = counted_fed(fed, rounds)
+        fed.shutdown()
+        implied = implied_launches(folds)
+        print(f"[process] threaded over TCP, servers on threads of this "
+              f"process: {wall:.1f} s ({wall:.4f} s); agg_stats "
+              f"{json.dumps(stats)}; launches {json.dumps(counts)}; "
+              f"{len(folds)} folds recorded, {implied} N-way sums implied")
+        require_exact_accounting(fed, stats, rounds, "thread-hosted tcp")
+        require_sequence_route(counts, routes, "thread-hosted tcp")
+        require(counts["fedavg_agg"] == implied,
+                f"thread-hosted tcp: {counts['fedavg_agg']} fold launches, "
+                f"the recorded folds imply {implied}")
+        secure = threaded_secure(dev, "process",
+                                 server_hosts=tuple(servers.hosts))
+    finally:
+        servers.close()
+    return sum_counts((counts, routes), secure)
+
+
+def process_stress(dev, srv):
+    """``benchmarks/multiproc_store.py``'s mixed storm (4 writers x 100
+    cluster and global submits, 4 fetchers x 5,000 ``request_model`` +
+    ``packb``, 16 clusters, max_coalesce 16) with the forecaster's tree on
+    the card: the process store (2 spawned workers) and the TCP store (the
+    2 subprocess servers).  A measurement: no rate is held."""
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.store import ProcessShardedModelStore
+    from repro_torch.models.lstm import SolarForecaster
+
+    n_w, per, n_c = (MP_STRESS[x] for x in ("writers", "per_writer",
+                                             "clusters"))
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=MAIN_PATH["hidden"]))
+    gen = torch.Generator(device=dev).manual_seed(100)
+    pools = [[fc.init(gen, dev) for _ in range(MP_STRESS["pool"])]
+             for _ in range(n_w)]
+    init = fc.init(gen, dev)
+    keys = [f"c{i}" for i in range(n_c)]
+    draws, want = stress_draws(n_w, per, n_c)
+    fetchers = (MP_STRESS["fetchers"], MP_STRESS["per_fetcher"])
+    kw = dict(batch_aggregation=True, max_coalesce=MP_STRESS["max_coalesce"],
+              device=dev)
+    for name, extra in (
+            (f"process_{MP_STRESS['shards']}",
+             dict(n_shards=MP_STRESS["shards"])),
+            (f"tcp_{MP_STRESS['shards']}", dict(server_hosts=srv.hosts))):
+        with ProcessShardedModelStore(init, keys, **extra, **kw) as store:
+            stress_store(name, store, pools, draws, want, fetchers,
+                         tag="process")
+
+
+def phase_process(dev) -> tuple[dict, dict]:
+    """The process and TCP server tiers at the main path's full width: the
+    sim on the in-process emulation against the thread-sharded store, the
+    threaded runtime on spawned workers (batched, secure + DP), on two
+    subprocess shard servers with the read tier and a replica, on two
+    thread-hosted servers (launches counted here), and the mixed store
+    stress.  Returns the launches and routes of the runs in this process,
+    summed (counters set to 0 before each)."""
+    from repro_torch.core.transport import LoopbackShardServers
+
+    runs = [process_sim(dev), process_threaded(dev)]
+    before = compute_apps()
+    with LoopbackShardServers(2, device=str(dev)) as srv:
+        require_on_card(srv.pids, before, "subprocess shard servers")
+        runs.append(process_tcp(dev, srv))
+        runs.append(process_thread_hosted(dev))
+        process_stress(dev, srv)
+    counts, routes = sum_counts(*runs)
+    for name in PRIVACY_KERNELS:
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                                  "process path")
+    return counts, routes
+
+
+# ------------------------------------------------------------------ phase 9
 def llm_model(arch, dev, dtype=None, depth=None, generator=None):
     """(cfg, model, params) of ``arch`` at full width, weights random from
     the seed: drawn on the card (a CUDA generator) unless ``generator``."""
@@ -2261,7 +2792,7 @@ def phase_llm_agree(dev):
         torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 9
+# ------------------------------------------------------------------ phase 10
 def table_gap(a, b, same_nan=True) -> float:
     """Largest Table II / §IV.E gap in pp over the entries that are NaN in
     neither run; with ``same_nan`` NaN must sit in the same places."""
@@ -2455,7 +2986,7 @@ def check_threaded_secure(dev, init):
                              f"{gap} pp")
 
 
-# ------------------------------------------------------------------ phase 10
+# ------------------------------------------------------------------ phase 11
 def phase_example():
     """``examples/solar_forecasting_torch.py`` as a user runs it, on the
     card: it must exit 0, print Table II and write a report whose Table II
@@ -2509,12 +3040,18 @@ def main() -> int:
     try:
         phase_build()
         results = phase_kernels(dev)
+        for name, res in results.items():       # the kernels line's own keys
+            require(not {"name", "route", "source", "replaces",
+                         "launches"} & set(res),
+                    f"{name}: a check's result names a key of the kernels "
+                    "line")
         counts, routes = {}, {}
         counts["main"], routes["main"] = phase_main(dev)
         phase_profile(dev)
         counts["privacy"], routes["privacy"] = phase_privacy(dev)
         counts["threaded"], routes["threaded"], idle = phase_threaded(dev)
         counts["sharded"], routes["sharded"] = phase_sharded(dev, idle)
+        counts["process"], routes["process"] = phase_process(dev)
         counts["llm"] = phase_llm(dev)
         phase_agree(dev)
         phase_llm_agree(dev)

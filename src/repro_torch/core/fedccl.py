@@ -6,14 +6,18 @@ the runtime into one object — the library's main entry point.
     fed.run(rounds=5)                # async training (sim or threaded)
     keys, params = fed.join(new_spec)  # Predict & Evolve for a new client
 
-The port runs the single-lock ``ModelStore`` or, with ``server_shards``,
-the thread-sharded ``ShardedModelStore`` (per-shard drain workers, two-level
-global fold, live cluster migration) under the deterministic sim runtime or
-the threaded one, with the privacy layer (DP privatization, pairwise-mask
-secure aggregation, RDP accounting; ``repro_torch.privacy``).  The process
-and TCP topologies, the read tier and the telemetry layer of the reference
-arrive with later slices (see ROADMAP.md); asking for them raises
-``NotImplementedError``.
+The port runs the single-lock ``ModelStore``; with ``server_shards`` the
+thread-sharded ``ShardedModelStore`` (per-shard drain workers, two-level
+global fold, live cluster migration); with ``server_processes`` or
+``server_hosts`` the ``ProcessShardedModelStore`` (shard workers as
+spawned processes, the in-process emulation under the sim runtime, or
+standalone TCP shard servers, each folding on its own device), under the
+deterministic sim runtime or the threaded one, with the privacy layer (DP
+privatization, pairwise-mask secure aggregation, RDP accounting;
+``repro_torch.privacy``) and the read tier (``fetch_from_workers``:
+conditional fetches served by the shard servers; ``repro_torch.core.
+fetch``).  The reference's telemetry layer arrives with a later slice (see
+ROADMAP.md); asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,11 +27,16 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core.clustering import IncrementalDBSCAN
+from repro_torch.core.fetch import FetchClient
 from repro_torch.core.predict_evolve import ClusterSpace, PredictEvolve
 from repro_torch.core.protocol import Client, ClientSpec
 from repro_torch.core.runtime_sim import AsyncSimRuntime
 from repro_torch.core.runtime_threaded import AsyncThreadedRuntime
-from repro_torch.core.store import ModelStore, ShardedModelStore
+from repro_torch.core.store import (
+    ModelStore,
+    ProcessShardedModelStore,
+    ShardedModelStore,
+)
 from repro_torch.privacy.accountant import RDPAccountant
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
 from repro_torch.privacy.secure_agg import PairwiseMasker
@@ -59,6 +68,23 @@ class FedCCLConfig:
     # with K per-cluster shards (per-shard drain workers in the threaded
     # runtime, two-level global fold)
     server_shards: int = 0
+    # shard workers: K >= 1 runs each shard in a worker of its own (a
+    # spawned process under the threaded runtime, the deterministic
+    # in-process emulation under the sim), folding on FedCCL's device;
+    # takes precedence over server_shards
+    server_processes: int = 0
+    # standalone shard servers (repro_torch.launch.shard_server, or the
+    # reference's), "host:port" each, reached over TCP (wire v4); an entry
+    # "owner:port|replica:port" adds read replicas.  Takes precedence over
+    # server_processes; len(server_hosts) fixes the shard count
+    server_hosts: tuple = ()
+    # read tier: serve model_for's fetches from the shard servers over
+    # read-only sessions (conditional: not-modified acks and deltas), with
+    # the parent as fallback
+    fetch_from_workers: bool = False
+    # process/TCP stores: workers ship params with every Nth drain reply
+    # per model only; reads, checkpoints and shutdown sync dirty mirrors
+    mirror_sync_every: int = 1
     # virtual nodes per shard on the consistent-hash ownership ring
     ring_vnodes: int = 64
     # FedCCL.rebalance() policy: None = manual only (migrate_cluster);
@@ -81,21 +107,12 @@ class FedCCLConfig:
     # see the magnitude caveat in repro_torch.privacy.secure_agg
     secure_mask_scale: float = 1.0
     # ---- later slices: setting any of these raises NotImplementedError
-    server_processes: int = 0
-    server_hosts: tuple = ()
-    fetch_from_workers: bool = False
     telemetry: bool = False
 
 
 # (what was asked for, is it set, the entry of ROADMAP.md's module queue
 # that brings it, by its title)
 _LATER_SLICES = (
-    ("server_processes", lambda c: c.server_processes > 0,
-     "Scale-out server tiers: the process and TCP tiers"),
-    ("server_hosts", lambda c: bool(c.server_hosts),
-     "Scale-out server tiers: the process and TCP tiers"),
-    ("fetch_from_workers", lambda c: c.fetch_from_workers,
-     "Scale-out server tiers: the read tier"),
     ("telemetry", lambda c: c.telemetry, "Telemetry"),
 )
 
@@ -122,7 +139,24 @@ class FedCCL:
                        if cfg.secure_agg else None)
         self.accountant = (RDPAccountant(target_delta=cfg.target_delta)
                            if cfg.dp_clip is not None else None)
-        if cfg.server_shards > 0:
+        if cfg.server_hosts:
+            self.store = ProcessShardedModelStore(
+                init_params, server_hosts=list(cfg.server_hosts),
+                batch_aggregation=cfg.batch_aggregation,
+                max_coalesce=cfg.max_coalesce, masker=self.masker,
+                drain_timeout_s=cfg.drain_timeout_s,
+                mirror_sync_every=cfg.mirror_sync_every,
+                ring_vnodes=cfg.ring_vnodes, device=self.device)
+        elif cfg.server_processes > 0:
+            self.store = ProcessShardedModelStore(
+                init_params, n_shards=cfg.server_processes,
+                batch_aggregation=cfg.batch_aggregation,
+                max_coalesce=cfg.max_coalesce, masker=self.masker,
+                drain_timeout_s=cfg.drain_timeout_s,
+                mirror_sync_every=cfg.mirror_sync_every,
+                ring_vnodes=cfg.ring_vnodes,
+                inprocess=(cfg.runtime == "sim"), device=self.device)
+        elif cfg.server_shards > 0:
             self.store = ShardedModelStore(
                 init_params, n_shards=cfg.server_shards,
                 batch_aggregation=cfg.batch_aggregation,
@@ -142,6 +176,10 @@ class FedCCL:
         self._clients_by_id: dict[str, Client] = {}
         self._init_params = init_params
         self._runtime = None
+        # read tier: worker-served where the store has TCP endpoints,
+        # parent-served (with the conditional wire cache) otherwise
+        self.fetcher = (FetchClient(self.store, device=self.device)
+                        if cfg.fetch_from_workers else None)
 
     def _make_privatizer(self, client_id: str, index: int):
         if self.cfg.dp_clip is None:
@@ -181,10 +219,15 @@ class FedCCL:
         return rt.stats()
 
     def shutdown(self):
-        """Release server resources: a no-op, since the port's stores run in
-        this process's threads and hold no worker or socket (the
-        reference's process and TCP stores do).  Model state stays
-        readable."""
+        """Release server resources: the fetch client's read sessions and
+        a process-sharded store's workers (bounded joins; TCP servers go
+        back to accepting).  A no-op for the in-thread stores.  Model
+        state stays readable: the parent keeps mirrors of every tier."""
+        if self.fetcher is not None:
+            self.fetcher.close()
+        close = getattr(self.store, "close", None)
+        if close is not None:
+            close()
 
     # ------------------------------------------------- elastic membership
     def migrate_cluster(self, cluster_key: str, dst_shard: int) -> int:
@@ -262,6 +305,13 @@ class FedCCL:
         return report
 
     # ------------------------------------------------------------- inference
+    def _serve_params(self, level: str, key: str | None = None):
+        """One served read: through the fetch client when the read tier is
+        on, else a snapshot of the parent's mirror."""
+        if self.fetcher is not None:
+            return self.fetcher.fetch(level, key)[0]
+        return self.store.params(level, key)
+
     def model_for(self, client_id: str, level: str = "auto"):
         client = self._clients_by_id.get(client_id)
         if client is None:
@@ -274,7 +324,7 @@ class FedCCL:
         if level == "local":
             return client.local_params, "local"
         if level == "global":
-            return self.store.params("global"), "global"
+            return self._serve_params("global"), "global"
         if level.startswith("cluster"):
             if ":" in level:
                 key = level.split(":", 1)[1]
@@ -283,6 +333,6 @@ class FedCCL:
             else:
                 # noise client (DBSCAN label -1): no cluster model exists,
                 # fall back to the global tier instead of crashing
-                return self.store.params("global"), "global"
-            return self.store.params("cluster", key), f"cluster:{key}"
-        return self.pe.choose_inference_model(client)
+                return self._serve_params("global"), "global"
+            return self._serve_params("cluster", key), f"cluster:{key}"
+        return self.pe.choose_inference_model(client, serve=self._serve_params)

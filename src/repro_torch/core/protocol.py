@@ -80,8 +80,14 @@ class Client:
         return n_samples
 
     # ----------------------------------------------------- shared-tier round
-    def fetch(self, store: ModelStore, level: str, cluster_key=None):
-        """RequestModel: snapshot the shared model (start of async round)."""
+    def fetch(self, store: ModelStore, level: str, cluster_key=None, *,
+              fetcher=None):
+        """RequestModel: snapshot the shared model (start of async round).
+        With a ``fetcher`` (``repro_torch.core.fetch.FetchClient``) the
+        snapshot comes through the read tier instead, from the shard
+        servers where the topology allows; both give the same bytes."""
+        if fetcher is not None:
+            return fetcher.fetch(level, cluster_key)
         return store.request_model(level, cluster_key)
 
     def train_update(self, fetched_params, fetched_meta: ModelMeta,

@@ -187,6 +187,11 @@ class AsyncSimRuntime:
             out["shards"] = sharded["shards"]
             out["global_drains"] = sharded["global_drains"]
             out["shard_enqueued"] = sharded["shard_enqueued"]
+            if "respawns" in sharded:
+                # process-sharded store (the in-process emulation here)
+                out["processes"] = sharded["processes"]
+                out["respawns"] = sharded["respawns"]
+                out["drain_timeouts"] = sharded["drain_timeouts"]
         if self.store.masker is not None:
             out["secure_rounds"] = self.store.n_secure_rounds
             out["secure_recoveries"] = self.store.n_secure_recoveries

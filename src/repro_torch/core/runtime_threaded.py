@@ -33,8 +33,11 @@ the kernels' launch counters and kept scratch are guarded by
 ``kernels.build``'s locks.  Per-thread streams (with events and
 ``record_stream``) are a later item of ROADMAP.md.
 
-The reference's process pump (``scatter_drains``) comes with the process
-and TCP server tiers of ROADMAP.md's module queue.
+With a ``ProcessShardedModelStore`` (spawned workers or TCP shard servers)
+the drain threads become one ``process-pump`` whose ``drain_all`` beat
+scatter-gathers a fold across every worker (the parallelism lives in the
+workers; more parent threads would only contend for the interpreter
+lock).  Crash detection and respawn live in the store's RPC layer.
 """
 
 from __future__ import annotations
@@ -114,8 +117,12 @@ class AsyncThreadedRuntime:
 
     def _start_drain_workers(self, stop: threading.Event):
         """Sharded store: one pump per shard and one for the two-level
-        global fold.  Single-queue store: one ``drain_all`` sweep."""
-        if hasattr(self.store, "drain_shard"):
+        global fold.  Process-sharded store: one pump whose ``drain_all``
+        beat folds on every worker at once.  Single-queue store: one
+        ``drain_all`` sweep."""
+        if getattr(self.store, "scatter_drains", False):
+            fns = [("process-pump", self.store.drain_all)]
+        elif hasattr(self.store, "drain_shard"):
             fns = [(f"drain-shard-{k}",
                     (lambda k=k: self.store.drain_shard(k)))
                    for k in range(self.store.n_shards)]

@@ -27,6 +27,20 @@ them two-level (``two_level_coalesced_aggregate``): one plan over the
 seq-sorted concatenation, per-shard partials, one sample-weighted merge.
 Secure rounds stay on the owning shard's record.
 
+Process-sharded mode (``ProcessShardedModelStore``): the same K-shard
+topology with every shard promoted to a worker (``repro_torch.core.
+server_proc``): a spawned process, a standalone TCP shard server
+(``server_hosts``) or, under the sim runtime, the deterministic in-process
+emulation.  Submits cross per-shard msgpack queues, cluster folds run in
+the workers (on the ``fedavg_agg`` kernel when the worker's device is
+CUDA), and the global model merges by a cross-server plan, partial and
+merge split of the same two-level algebra.  The parent journals every
+update until its fold is acked, so a crashed or stuck worker is respawned
+and replayed without losing updates or counting rounds twice.
+
+Every store flavour serves conditional fetches (``fetch_wire``) through a
+version-keyed wire cache (``repro_torch.core.fetch``).
+
 Stored parameters are never updated in place: a fold builds a new tree and
 swaps it in, so a snapshot handed to a client stays as it was.
 """
@@ -40,15 +54,28 @@ import zlib
 from collections import deque
 from dataclasses import dataclass
 
+from repro_torch.checkpoint.msgpack_ckpt import unpackb
+from repro_torch.core import server_proc, transport
 from repro_torch.core.aggregation import (
     AggregationConfig,
     ModelMeta,
     UpdateDelta,
     aggregate_models,
+    chunked_convex_reduce,
     coalesced_aggregate,
+    multi_aggregate,
+    plan_coalesce,
     secure_coalesced_aggregate,
     two_level_coalesced_aggregate,
 )
+from repro_torch.core.fetch import WireCache, serve_fetch
+from repro_torch.core.server_proc import (
+    delta_from_wire,
+    delta_to_wire,
+    meta_from_wire,
+    meta_to_wire,
+)
+from repro_torch.utils.device import resolve_device
 
 GLOBAL_KEY = "__global__"
 
@@ -273,6 +300,8 @@ class _RegistryBase:
         for key in cluster_keys:
             records[str(key)] = ModelRecord(init_params)
         self._records: dict[str, ModelRecord] = records
+        # shared by fetch_wire() across every store flavour
+        self._wire_cache = WireCache()
 
     # ------------------------------------------------------------------ keys
     @staticmethod
@@ -321,6 +350,20 @@ class _RegistryBase:
         """RequestModel — snapshot read (no model lock needed for consistency;
         the paper's clients read whatever the latest aggregated state is)."""
         return self._record(self._key(level, cluster_key)).snapshot()
+
+    def fetch_wire(self, level: str, cluster_key: str | None = None,
+                   held=None):
+        """Parent-served conditional fetch: ``(result, payload, meta_wire)``
+        with a shard server's ``fetch`` semantics (``serve_fetch``): a
+        not-modified ack when the client's held ``[samples, epochs,
+        round]`` is current, a delta when the held version is cached, else
+        the full packed snapshot, serialized once per version."""
+        params, meta = self.request_model(level, cluster_key)
+        meta_w = meta_to_wire(meta)
+        kind, payload = serve_fetch(self._wire_cache,
+                                    self._key(level, cluster_key),
+                                    params, meta_w, held)
+        return kind, payload, meta_w
 
     # ------------------------------------------------------------- inspection
     def meta(self, level: str, cluster_key: str | None = None) -> ModelMeta:
@@ -430,11 +473,12 @@ class _StoreBase(_RegistryBase):
         raise NotImplementedError
 
     def _count_drain(self, folded: int, fast: int, secure: bool = False,
-                     recovered: int = 0):
+                     recovered: int = 0, batches: int = 1):
+        """Count a drain; one worker reply's folds may span ``batches``."""
         with self._drain_lock:
             self._n_drain_updates += folded
             self._n_drain_fast_path += fast
-            self.n_drain_batches += 1
+            self.n_drain_batches += batches
             self.n_drained += folded
             if secure:
                 self.n_secure_rounds += 1
@@ -1024,3 +1068,971 @@ def _sharded_agg_stats(store, shards, extra: dict | None = None) -> dict:
         out["secure_rounds"] = drain["secure_rounds"]
         out["secure_recoveries"] = drain["secure_recoveries"]
     return out
+
+
+# =========================================================================
+# Process-sharded store: shard servers as workers
+# =========================================================================
+
+
+class _JournalEntry:
+    """One unacked update the parent still owns.  ``raw`` is the exact wire
+    message sent to the worker, so a respawn replays it byte for byte.
+    ``custody`` marks global updates whose payload a ``greduce`` reply has
+    handed back: a replay skips them, or the in-flight merge would count
+    them twice."""
+
+    __slots__ = ("kind", "key", "rounds", "raw", "custody")
+
+    def __init__(self, kind: str, key: str, rounds: int, raw: bytes):
+        self.kind = kind          # "sub" | "gsub" | "secure"
+        self.key = key
+        self.rounds = rounds
+        self.raw = raw
+        self.custody = False
+
+
+class _ProcShard:
+    """Parent-side bookkeeping for one worker: its transport, submit stats
+    and the journal of unacked updates (the replay source).  ``rpc_lock``
+    serializes replying commands and respawns; ``journal_lock`` is the leaf
+    lock over the journal, the per-key counters, the outbox and the lazy
+    sync state."""
+
+    __slots__ = ("idx", "stats", "handle", "rpc_lock", "journal",
+                 "journal_lock", "pending_counts", "pending_rounds",
+                 "secure_counts", "outbox", "dirty", "deferred",
+                 "replicas", "replica_pushes", "replica_drops")
+
+    def __init__(self, idx: int):
+        self.idx = idx
+        self.stats = _SubmitStats()
+        self.handle = None
+        self.replicas: list = []          # read-replica transports (TCP)
+        self.replica_pushes = 0           # mirror pushes delivered
+        self.replica_drops = 0            # pushes skipped (replica down)
+        self.rpc_lock = threading.RLock()
+        self.journal: dict[int, _JournalEntry] = {}     # seq -> entry
+        self.journal_lock = threading.Lock()
+        self.pending_counts: dict[str, int] = {}        # key -> unacked subs
+        self.pending_rounds: dict[str, int] = {}        # key -> their rounds
+        self.secure_counts: dict[tuple, int] = {}       # (key, round) -> n
+        self.outbox: list = []                          # unflushed raw msgs
+        # lazy mirror sync: keys whose worker params are ahead of the
+        # mirror (meta-only acks received), and the drain stats deferred
+        # until their params land
+        self.dirty: set[str] = set()
+        self.deferred: dict[str, list] = {}   # key -> [folded, fast, batches]
+
+
+class ProcessShardedModelStore(_StoreBase):
+    """``ShardedModelStore`` semantics with every shard promoted to a
+    worker: a spawned process (``inprocess=False``), the deterministic
+    in-process emulation (``inprocess=True``, the sim runtime's) or a
+    standalone TCP shard server per entry of ``server_hosts``.
+
+    The parent keeps the authoritative registry (reads are parent-local
+    snapshots on ``device``) and a per-shard journal of unacked updates.
+    Each worker owns working copies of its shard's cluster models, their
+    queues and secure-round buckets, and its slice of the global queue,
+    and folds them on its own device.  A submit is serialized once and
+    queued on its shard without blocking; a drain RPC makes the worker fold
+    and ship ``(params, meta)`` back, which the parent swaps into its
+    mirror and acks against the journal in one step.
+
+    The global model folds by a cross-server two-level merge: the parent
+    gathers every worker's slice metadata (``gmeta``), plans once over the
+    seq-sorted concatenation, each worker reduces its own members to one
+    convex partial (``greduce``), and a mass-weighted merge of the K
+    partials in the parent gives the flat fold's sum.
+
+    A worker that dies or misses ``drain_timeout_s`` is respawned from the
+    parent's mirrors and its journal replayed (``drain_timeouts`` and
+    ``respawns`` in ``agg_stats()``).  Secure rounds of a cluster model fold
+    inside its worker; the global model's secure rounds fold in the parent.
+    ``mirror_sync_every=N`` ships params with every Nth drain reply only;
+    reads, checkpoints and ``close`` sync dirty mirrors first
+    (``sync_mirrors``).
+
+    ``device`` (``None``: CUDA) is where the parent decodes replies and,
+    for the spawned and in-process flavours, where the workers fold; a TCP
+    server folds on the device it was started with.  Before spawning CUDA
+    workers the parent builds the kernel library, so the children only
+    load it.
+
+    ``server_hosts`` entries may name read replicas, ``"owner|replica"``:
+    the owner folds, the parent pushes each folded mirror to the replicas,
+    and fetch clients round-robin over all of them.
+    """
+
+    # drains are scatter-gather beats: the threaded runtime runs one pump
+    # calling drain_all() (the parallelism lives in the workers)
+    scatter_drains = True
+
+    # extra reply allowance for the command retried after a respawn
+    SPAWN_ALLOWANCE_S = 60.0
+
+    # submits coalesce into one queue message per shard; every RPC flushes
+    # first, which keeps the command queue's FIFO order
+    FLUSH_N = 8
+
+    def __init__(self, init_params, cluster_keys=(),
+                 agg_cfg: AggregationConfig = AggregationConfig(),
+                 n_shards: int = 4, batch_aggregation: bool = True,
+                 max_coalesce: int = 16, masker=None,
+                 drain_timeout_s: float = 30.0, inprocess: bool = False,
+                 server_hosts=None, mirror_sync_every: int = 1,
+                 ring_vnodes: int = 64, device=None):
+        if server_hosts:
+            owners, replicas = [], []
+            for h in server_hosts:
+                parts = [p for p in
+                         (s.strip() for s in str(h).split("|")) if p]
+                owners.append(transport.parse_host(parts[0]))
+                replicas.append([transport.parse_host(p)
+                                 for p in parts[1:]])
+            self.server_hosts = owners
+            self.replica_hosts = replicas if any(replicas) else None
+            n_shards = len(self.server_hosts)
+        else:
+            self.server_hosts = None
+            self.replica_hosts = None
+        self.n_shards = max(int(n_shards), 1)
+        super().__init__(init_params, cluster_keys, agg_cfg,
+                         batch_aggregation, max_coalesce, masker,
+                         drain_timeout_s)
+        self.device = resolve_device(device)
+        self.inprocess = bool(inprocess) and self.server_hosts is None
+        self.mirror_sync_every = max(int(mirror_sync_every), 1)
+        self.ring = HashRing(self.n_shards, ring_vnodes)
+        self.n_cluster_migrations = 0     # under the shared _drain_lock
+        self._gseq = itertools.count()
+        self.n_global_drains = 0
+        self.n_global_partials = 0
+        self.n_respawns = 0
+        self.n_mirror_syncs = 0           # explicit sync RPCs issued
+        self.n_shard_drain_timeouts = [0] * self.n_shards
+        self._closed = False
+        if (self.server_hosts is None and not self.inprocess
+                and self.device.type == "cuda"):
+            from repro_torch.kernels import build
+
+            build.build()          # children load it; none runs nvcc
+        self._proc_shards = [_ProcShard(i) for i in range(self.n_shards)]
+        try:
+            for sh in self._proc_shards:
+                sh.handle = self._make_handle(sh.idx)
+            for sh in self._proc_shards:
+                wait = getattr(sh.handle, "wait_ready", None)
+                if wait is not None:
+                    wait()         # cold starts overlap across workers
+                if self.replica_hosts:
+                    # replicas start from the owner's seed, then receive
+                    # only `mirror` pushes
+                    for addr in self.replica_hosts[sh.idx]:
+                        sh.replicas.append(transport.TcpWorkerHandle(
+                            sh.idx, self._seed_blob(sh.idx), addr,
+                            connect_timeout=max(self.drain_timeout_s, 10.0)))
+        except BaseException:
+            for sh in self._proc_shards:
+                for h in [sh.handle, *sh.replicas]:
+                    if h is not None:
+                        h.discard()
+            raise
+
+    def _decode(self, raw: bytes):
+        """A worker's reply with its arrays as tensors on ``device``."""
+        return unpackb(raw, self.device)
+
+    # --------------------------------------------------------------- lifecycle
+    def _make_handle(self, shard_idx: int) -> transport.Transport:
+        blob = self._seed_blob(shard_idx)
+        if self.server_hosts is not None:
+            return transport.TcpWorkerHandle(
+                shard_idx, blob, self.server_hosts[shard_idx],
+                connect_timeout=max(self.drain_timeout_s, 10.0))
+        cls = (server_proc.InprocessWorkerHandle if self.inprocess
+               else server_proc.ProcessWorkerHandle)
+        return cls(shard_idx, blob, self.device)
+
+    def _seed_blob(self, shard_idx: int) -> bytes:
+        recs = []
+        for key in self.shard_cluster_keys(shard_idx):
+            # fedlint: unlocked-ok(copy-on-write registry snapshot read)
+            params, meta = self._records[key].snapshot()
+            recs.append((key, params, meta))
+        # every worker learns where migrated-away keys live, so a respawned
+        # ex-owner keeps answering redirects
+        migrated = {key: [dst, ep]
+                    for key, (dst, ep) in self.ring.overrides().items()
+                    if dst != shard_idx}
+        return server_proc.make_seed_blob(recs, self.max_coalesce,
+                                          self.agg_cfg, self.masker,
+                                          self.mirror_sync_every, None,
+                                          # fedlint: unlocked-ok(monotone epoch; seed built under rpc_lock)
+                                          epoch=self.ring.epoch,
+                                          migrated=migrated)
+
+    def close(self, timeout: float | None = None):
+        """Stop every worker with a bounded join (TCP sessions end and the
+        servers go back to accepting), after syncing dirty mirrors.
+        Idempotent; undrained updates stay journaled in the parent."""
+        if self._closed:
+            return
+        try:
+            self.sync_mirrors()
+        except (RuntimeError, OSError):
+            pass                  # a dead worker's folds are replay-covered
+        self._closed = True
+        t = self.drain_timeout_s if timeout is None else float(timeout)
+        for sh in self._proc_shards:
+            with sh.rpc_lock:
+                for h in [sh.handle, *sh.replicas]:
+                    try:
+                        h.stop(min(t, 10.0))
+                    except (RuntimeError, OSError):
+                        h.discard()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def worker_spawns(self) -> list:
+        """Per-shard spawn counts (1 = never respawned)."""
+        return [sh.handle.spawns for sh in self._proc_shards]
+
+    def _debug_kill_worker(self, shard: int):
+        """Crash injection (tests): kill a worker; the next drain touching
+        the shard detects it and respawns."""
+        self._proc_shards[shard].handle.kill()
+
+    # ------------------------------------------------------------------ keys
+    def _submit_stats(self, key: str) -> _SubmitStats:
+        return self._proc_shards[self.shard_of(key)].stats
+
+    def _all_submit_stats(self) -> list:
+        return [s.stats for s in self._proc_shards]
+
+    def shard_of(self, key: str) -> int:
+        """The ring assignment ``ShardedModelStore.shard_of`` uses."""
+        return self.ring.shard_of(key)
+
+    def ownership_epoch(self) -> int:
+        """Monotone epoch bumped by every ``migrate_cluster``."""
+        # fedlint: unlocked-ok(monotone int; torn read returns a valid epoch)
+        return self.ring.epoch
+
+    def shard_cluster_keys(self, shard: int):
+        # fedlint: unlocked-ok(copy-on-write registry snapshot read)
+        return [k for k in self._records
+                if k != GLOBAL_KEY and self.shard_of(k) == shard]
+
+    def ensure_cluster(self, cluster_key: str, init_params=None):
+        key = str(cluster_key)
+        with self._registry_lock:
+            if key in self._records:
+                return
+            seed = (init_params if init_params is not None
+                    else self._records[GLOBAL_KEY].params)
+            updated = dict(self._records)
+            updated[key] = ModelRecord(seed)
+            self._records = updated
+        # the queue's FIFO order makes the worker register the model before
+        # any later update for it
+        while True:
+            idx = self.shard_of(key)
+            sh = self._proc_shards[idx]
+            with sh.journal_lock:
+                if self.shard_of(key) != idx:
+                    continue    # migration fenced this key mid-publish
+                raw = server_proc.packb(["ensure", key, seed,
+                                         self.ring.epoch])
+                self._outbox_put(sh, raw)
+            break
+        for h in sh.replicas:       # replicas must serve the key too
+            if h.alive():
+                h.put(raw)
+
+    # ------------------------------------------------------- submit paths
+    def handle_model_update(self, level: str, cluster_key: str | None,
+                            updated_params, updated_meta: ModelMeta,
+                            delta: UpdateDelta, *, blocking: bool = True) -> bool:
+        """Every update crosses to a worker, so the store queues even
+        unbatched: a non-batched config drains right after the enqueue (a
+        coalesced fold of one update, Algorithm 2's result)."""
+        self.enqueue_update(level, cluster_key, updated_params, updated_meta,
+                            delta)
+        if not self.batch_aggregation:
+            self.drain(level, cluster_key)
+        return True
+
+    def enqueue_update(self, level: str, cluster_key: str | None,
+                       updated_params, updated_meta: ModelMeta,
+                       delta: UpdateDelta) -> int:
+        key = self._key(level, cluster_key)
+        seq = next(self._gseq)
+        if key == GLOBAL_KEY:
+            # global tier: a round-robin worker slice (the two-level fold
+            # sorts by seq, so the slice is free)
+            sh = self._proc_shards[seq % self.n_shards]
+            raw = server_proc.packb(
+                ["gsub", seq, updated_params, meta_to_wire(updated_meta),
+                 delta_to_wire(delta)])
+            sh.stats.count_enqueue()    # before publish — see _SubmitStats
+            with sh.journal_lock:
+                sh.journal[seq] = _JournalEntry("gsub", key, delta.rounds,
+                                                raw)
+                sh.pending_counts[key] = sh.pending_counts.get(key, 0) + 1
+                sh.pending_rounds[key] = \
+                    sh.pending_rounds.get(key, 0) + delta.rounds
+                depth = sh.pending_counts[key]
+                self._outbox_put(sh, raw)
+        else:
+            self._record(key)          # unknown cluster -> KeyError, as flat
+            meta_w = meta_to_wire(updated_meta)
+            delta_w = delta_to_wire(delta)
+            while True:
+                idx = self.shard_of(key)
+                sh = self._proc_shards[idx]
+                with sh.journal_lock:
+                    if self.shard_of(key) != idx:
+                        # a migration fenced this key between the route
+                        # read and the journal lock: reroute
+                        continue
+                    # counted once, on the shard that takes it, and before
+                    # publish (see _SubmitStats); the reference counts
+                    # before the fence check, once per reroute
+                    sh.stats.count_enqueue()
+                    raw = server_proc.packb(
+                        ["sub", seq, key, updated_params, meta_w, delta_w,
+                         self.ring.epoch])
+                    sh.journal[seq] = _JournalEntry("sub", key, delta.rounds,
+                                                    raw)
+                    sh.pending_counts[key] = sh.pending_counts.get(key, 0) + 1
+                    sh.pending_rounds[key] = \
+                        sh.pending_rounds.get(key, 0) + delta.rounds
+                    depth = sh.pending_counts[key]
+                    self._outbox_put(sh, raw)
+                break
+        sh.stats.observe_depth(depth)
+        return depth
+
+    def _enqueue_many(self, level: str, cluster_key: str | None,
+                      ups) -> int:
+        # every update is journaled on its own (replay is per entry); the
+        # outbox already batches them onto the wire
+        depth = 0
+        for p, m, d in ups:
+            depth = self.enqueue_update(level, cluster_key, p, m, d)
+        return depth
+
+    def pending_depth(self, level: str, cluster_key: str | None = None) -> int:
+        key = self._key(level, cluster_key)
+        if key == GLOBAL_KEY:
+            total = 0
+            for sh in self._proc_shards:
+                with sh.journal_lock:
+                    total += sh.pending_counts.get(GLOBAL_KEY, 0)
+            return total
+        sh = self._proc_shards[self.shard_of(key)]
+        with sh.journal_lock:
+            return sh.pending_counts.get(key, 0)
+
+    def effective_round(self, level: str, cluster_key: str | None = None) -> int:
+        """The journal holds every queued and in-flight update, and acks
+        land in the section that swaps the folded meta in, so the round
+        never appears to go back mid-drain."""
+        key = self._key(level, cluster_key)
+        rec = self._record(key)
+        if key == GLOBAL_KEY:
+            with rec.pending_lock:
+                queued = 0
+                for sh in self._proc_shards:
+                    with sh.journal_lock:
+                        queued += sh.pending_rounds.get(GLOBAL_KEY, 0)
+                return rec.meta.round + queued
+        sh = self._proc_shards[self.shard_of(key)]
+        with sh.journal_lock:
+            return rec.meta.round + sh.pending_rounds.get(key, 0)
+
+    # ---------------------------------------------------------------- drains
+    @staticmethod
+    def _ack(sh: _ProcShard, seqs):
+        """Retire acked journal entries.  Caller holds ``sh.journal_lock``
+        and has applied the fold they belong to."""
+        for seq in seqs:
+            e = sh.journal.pop(seq, None)
+            if e is None:
+                continue
+            if e.kind in ("sub", "gsub"):
+                sh.pending_counts[e.key] = sh.pending_counts.get(e.key, 1) - 1
+                sh.pending_rounds[e.key] = \
+                    sh.pending_rounds.get(e.key, e.rounds) - e.rounds
+
+    def _respawn(self, sh: _ProcShard):
+        """Replace a dead or stuck worker: ``restart`` resets it from the
+        parent's mirrors, then the journal is replayed in seq order
+        (entries in the parent's custody skipped).  Folded-but-unsynced
+        entries are still journaled, so the replay refolds them and their
+        deferred stats are dropped here.  Caller holds ``sh.rpc_lock``."""
+        with sh.journal_lock:
+            sh.outbox = []     # journaled (subs) or registry-derived (ensure)
+            sh.dirty.clear()   # a reseeded worker equals the mirror
+            sh.deferred.clear()
+            sh.handle.restart(self._seed_blob(sh.idx))
+            for seq in sorted(sh.journal):
+                e = sh.journal[seq]
+                if not e.custody:
+                    self._outbox_put(sh, e.raw)
+            self._flush_outbox(sh)
+        with self._drain_lock:
+            self.n_respawns += 1
+
+    def _flush_outbox(self, sh: _ProcShard):
+        """Ship the shard's buffered fire-and-forget messages as one batch.
+        Caller holds ``sh.journal_lock``."""
+        if not sh.outbox:
+            return
+        if len(sh.outbox) == 1:
+            sh.handle.put(sh.outbox[0])
+        else:
+            sh.handle.put(server_proc.packb(["batch", sh.outbox]))
+        sh.outbox = []
+
+    def _outbox_put(self, sh: _ProcShard, raw: bytes):
+        """Buffer one fire-and-forget message, flushing at ``FLUSH_N``.
+        Caller holds ``sh.journal_lock``."""
+        sh.outbox.append(raw)
+        if len(sh.outbox) >= self.FLUSH_N:
+            self._flush_outbox(sh)
+
+    def _exchange(self, sh: _ProcShard, raw: bytes,
+                  timeout: float | None = None):
+        """Send one replying command and decode its reply; on
+        ``WorkerUnavailable`` respawn (journal replay) and retry once.
+        Caller holds ``sh.rpc_lock``."""
+        timeout = self.drain_timeout_s if timeout is None else timeout
+        for attempt in (0, 1):
+            try:
+                return self._decode(sh.handle.rpc(raw, timeout))
+            except transport.WorkerUnavailable as e:
+                if isinstance(e, transport.WorkerTimeout):
+                    self._count_drain_timeout(sh.idx)
+                self._respawn(sh)
+                timeout = self.drain_timeout_s + self.SPAWN_ALLOWANCE_S
+                if attempt:
+                    raise RuntimeError(
+                        f"shard {sh.idx} worker unavailable even after "
+                        f"respawn: {e}") from e
+
+    @staticmethod
+    def _check_error(sh: _ProcShard, reply):
+        if reply[0] == "error":
+            raise RuntimeError(
+                f"shard {sh.idx} worker error on {reply[1]!r}: {reply[2]}")
+
+    def _rpc(self, sh: _ProcShard, raw: bytes, on_reply):
+        """One replying worker command; ``on_reply`` runs inside the
+        critical section, so its acks and custody marks are visible before
+        a later respawn could replay what it consumed."""
+        with sh.rpc_lock:
+            with sh.journal_lock:
+                self._flush_outbox(sh)
+            reply = self._exchange(sh, raw)
+            self._check_error(sh, reply)
+            return on_reply(reply)
+
+    def _scatter_gather(self, raws, on_reply) -> list:
+        """Send one replying command to every worker, then gather: the K
+        folds run at once while the parent waits once.  ``raws`` is one
+        command for all shards or one per shard.  Holds every shard's rpc
+        lock (index order); a shard that crashes is respawned and retried
+        alone.  Returns ``on_reply(sh, reply)`` per shard."""
+        if isinstance(raws, bytes):
+            raws = [raws] * self.n_shards
+        if self.inprocess:
+            # the emulation dispatches inline: a sequential sweep
+            return [self._rpc(sh, raw, lambda reply, sh=sh: on_reply(sh, reply))
+                    for sh, raw in zip(self._proc_shards, raws, strict=True)]
+        for sh in self._proc_shards:
+            sh.rpc_lock.acquire()
+        try:
+            for sh, raw in zip(self._proc_shards, raws, strict=True):
+                with sh.journal_lock:
+                    self._flush_outbox(sh)
+                sh.handle.put(raw)               # scatter: no waiting yet
+            out = []
+            for sh, raw in zip(self._proc_shards, raws, strict=True):
+                try:
+                    reply = self._decode(
+                        sh.handle.rpc_recv(self.drain_timeout_s))
+                except transport.WorkerUnavailable as e:
+                    if isinstance(e, transport.WorkerTimeout):
+                        self._count_drain_timeout(sh.idx)
+                    self._respawn(sh)
+                    reply = self._exchange(        # journal replayed
+                        sh, raw,
+                        self.drain_timeout_s + self.SPAWN_ALLOWANCE_S)
+                self._check_error(sh, reply)
+                out.append(on_reply(sh, reply))
+            return out
+        finally:
+            for sh in self._proc_shards:
+                sh.rpc_lock.release()
+
+    def _push_replicas(self, sh: _ProcShard, key: str, params, meta_w):
+        """Best-effort ``mirror`` push to the shard's read replicas after a
+        mirror swap.  A dead replica drops pushes and gets a throttled
+        reconnect, whose re-seed resyncs every key it missed.  Callers hold
+        ``sh.rpc_lock``, never ``journal_lock``."""
+        if not sh.replicas:
+            return
+        raw = server_proc.packb(["mirror", key, params, meta_w])
+        for h in sh.replicas:
+            if h.alive():
+                h.put(raw)
+                sh.replica_pushes += 1
+                continue
+            sh.replica_drops += 1
+            if sh.replica_drops % 32 == 1:
+                try:
+                    h.restart(self._seed_blob(sh.idx))
+                    h.put(raw)
+                    sh.replica_pushes += 1
+                except (transport.WorkerUnavailable, OSError):
+                    h.discard()
+
+    def _apply_drained(self, sh: _ProcShard, reply) -> int:
+        _, key, folded, fast, batches, acked, params, meta_w = reply
+        if not folded:
+            return 0
+        rec = self._record(key)
+        if params is None:
+            # meta-only ack (lazy sync): keep the entries journaled, mark
+            # the mirror dirty, defer the stats until the params land
+            with sh.journal_lock:
+                sh.dirty.add(key)
+                d = sh.deferred.setdefault(key, [0, 0, 0])
+                d[0] += folded
+                d[1] += fast
+                d[2] += batches
+            return folded
+        with sh.journal_lock:
+            rec.swap(params, meta_from_wire(meta_w))
+            self._ack(sh, acked)     # flushes earlier meta-only acks too
+            sh.dirty.discard(key)
+            dfolded, dfast, dbatches = sh.deferred.pop(key, (0, 0, 0))
+        self._push_replicas(sh, key, params, meta_w)
+        self._count_drain(folded + dfolded, fast + dfast,
+                          batches=batches + dbatches)
+        return folded
+
+    def drain(self, level: str, cluster_key: str | None = None) -> int:
+        key = self._key(level, cluster_key)
+        if key == GLOBAL_KEY:
+            return self.drain_global()
+        sh = self._proc_shards[self.shard_of(key)]
+        return self._rpc(sh, server_proc.packb(["drain", key]),
+                         lambda reply: self._apply_drained(sh, reply))
+
+    def _apply_shard_beat(self, sh: _ProcShard, reply) -> int:
+        """Apply one ``shard_drained`` reply: each key's folded state
+        swapped into its mirror and acked."""
+        total = 0
+        for per_key in reply[1]:
+            total += self._apply_drained(sh, ["drained"] + list(per_key))
+        return total
+
+    def drain_shard(self, shard: int) -> int:
+        """One drain beat for a whole worker: every cluster model it owns,
+        folded in one round trip."""
+        sh = self._proc_shards[shard]
+        return self._rpc(sh, server_proc.packb(["drain_shard"]),
+                         lambda reply: self._apply_shard_beat(sh, reply))
+
+    def _abort_global_drain(self):
+        """Undo a half-done cross-server merge: clear custody so the
+        journal is authoritative again, then respawn every worker (nothing
+        was acked, so the replay restores each slice)."""
+        for sh in self._proc_shards:
+            with sh.journal_lock:
+                for e in sh.journal.values():
+                    e.custody = False
+            with sh.rpc_lock:
+                self._respawn(sh)
+
+    def drain_global(self) -> int:
+        """Cross-server two-level merge: gather every server's slice
+        metadata (``gmeta``), plan once over the seq-sorted concatenation
+        (the flat fold's coefficients), let each worker reduce its members
+        to one convex partial (``greduce``: only K partials cross the
+        wire), then merge them mass-weighted in the parent."""
+        rec = self._record(GLOBAL_KEY)
+        with rec.lock:
+            metas = self._scatter_gather(server_proc.packb(["gmeta"]),
+                                         lambda sh, reply: reply[1])
+            flat = sorted((int(it[0]), k, meta_from_wire(it[1]),
+                           delta_from_wire(it[2]))
+                          for k, items in enumerate(metas) for it in items)
+            n = len(flat)
+            if n == 0:
+                return 0
+            plan = plan_coalesce(rec.meta, [(m, d) for _, _, m, d in flat],
+                                 self.agg_cfg)
+            by_shard: dict[int, list] = {k: [] for k in range(self.n_shards)}
+            for (seq, k, _, _), w in zip(flat, plan.weights[1:], strict=True):
+                by_shard[k].append([seq, w])
+            try:
+                # custody marks the reduced entries, so a concurrent
+                # respawn cannot replay them while the merge is in flight
+                def collect(sh, reply):
+                    with sh.journal_lock:
+                        for seq in reply[1]:
+                            e = sh.journal.get(int(seq))
+                            if e is not None:
+                                e.custody = True
+                    return reply
+                raws = [server_proc.packb(["greduce", by_shard[k]])
+                        for k in range(self.n_shards)]
+                replies = self._scatter_gather(raws, collect)
+                acked = [[int(s) for s in reply[1]] for reply in replies]
+                partials = [(reply[3], reply[2]) for reply in replies
+                            if reply[3] is not None and reply[2] > 0.0]
+                base_w = plan.weights[0]
+                entries = (([(rec.params, base_w)] if base_w != 0.0 else [])
+                           + partials)
+                if not entries:
+                    new_params = rec.params
+                else:
+                    entries = chunked_convex_reduce(entries,
+                                                    self.max_coalesce,
+                                                    self.agg_cfg)
+                    new_params = (entries[0][0] if len(entries) == 1 else
+                                  multi_aggregate([p for p, _ in entries],
+                                                  [m for _, m in entries],
+                                                  self.agg_cfg))
+            except BaseException:
+                self._abort_global_drain()
+                raise
+            with rec.pending_lock:
+                rec.swap(new_params, plan.meta)
+                for sh, sq in zip(self._proc_shards, acked, strict=True):
+                    with sh.journal_lock:
+                        self._ack(sh, sq)
+        with self._drain_lock:
+            self._n_drain_updates += n
+            self._n_drain_fast_path += plan.n_fast_path
+            self.n_drain_batches += 1
+            self.n_drained += n
+            self.n_global_drains += 1
+            self.n_global_partials += len(partials)
+        return n
+
+    def drain_all(self) -> int:
+        """One full beat: the cross-server global merge, then one
+        ``drain_shard`` broadcast (the threaded runtime's process pump)."""
+        total = self.drain_global()
+        total += sum(self._scatter_gather(server_proc.packb(["drain_shard"]),
+                                          self._apply_shard_beat))
+        return total
+
+    # ---------------------------------------------------- lazy mirror sync
+    def _apply_synced(self, sh: _ProcShard, reply) -> int:
+        """Apply one ``synced`` reply: swap each shipped (params, meta) in,
+        retire the accumulated acks, release the deferred stats."""
+        n = 0
+        for key, acked, params, meta_w in reply[1]:
+            rec = self._record(key)
+            with sh.journal_lock:
+                rec.swap(params, meta_from_wire(meta_w))
+                self._ack(sh, acked)
+                sh.dirty.discard(key)
+                counts = sh.deferred.pop(key, None)
+            self._push_replicas(sh, key, params, meta_w)
+            if counts:
+                self._count_drain(counts[0], counts[1], batches=counts[2])
+            n += 1
+        return n
+
+    def _sync_shard(self, sh: _ProcShard) -> int:
+        with self._drain_lock:
+            self.n_mirror_syncs += 1
+        return self._rpc(sh, server_proc.packb(["sync"]),
+                         lambda reply: self._apply_synced(sh, reply))
+
+    def fetch_endpoints(self):
+        """Read-tier addresses per shard (replicas first, the owner last),
+        or ``None`` when the workers are not reachable over TCP."""
+        if self.server_hosts is None:
+            return None
+        out = []
+        for sh in self._proc_shards:
+            addrs = (list(self.replica_hosts[sh.idx])
+                     if self.replica_hosts else [])
+            addrs.append(self.server_hosts[sh.idx])
+            out.append(addrs)
+        return out
+
+    def _sync_key(self, key: str):
+        """Read barrier for one model: a dirty mirror pulls the worker's
+        params before the read.  The dirty mark is set and checked under
+        ``journal_lock``, so a read that starts after a meta-only ack was
+        applied always syncs."""
+        if self.mirror_sync_every <= 1 or key == GLOBAL_KEY or self._closed:
+            return
+        sh = self._proc_shards[self.shard_of(key)]
+        with sh.journal_lock:
+            if key not in sh.dirty:
+                return
+        self._sync_shard(sh)
+
+    def sync_mirrors(self) -> int:
+        """Barrier: flush every worker's folded-but-unshipped params into
+        the mirrors.  Returns the models synced (0 when every drain reply
+        ships params)."""
+        if self.mirror_sync_every <= 1 or self._closed:
+            return 0
+        synced = 0
+        for sh in self._proc_shards:
+            with sh.journal_lock:
+                dirty = bool(sh.dirty)
+            if dirty:
+                synced += self._sync_shard(sh)
+        return synced
+
+    # ------------------------------------------------- reads (sync barrier)
+    def request_model(self, level: str, cluster_key: str | None = None):
+        self._sync_key(self._key(level, cluster_key))
+        return super().request_model(level, cluster_key)
+
+    def params(self, level: str, cluster_key: str | None = None):
+        self._sync_key(self._key(level, cluster_key))
+        return super().params(level, cluster_key)
+
+    def meta(self, level: str, cluster_key: str | None = None) -> ModelMeta:
+        self._sync_key(self._key(level, cluster_key))
+        return super().meta(level, cluster_key)
+
+    # ---------------------------------------------------- secure aggregation
+    def submit_secure(self, level: str, cluster_key: str | None,
+                      client_id: str, round_id: int, masked_delta,
+                      delta: UpdateDelta) -> int:
+        key = self._key(level, cluster_key)
+        if key == GLOBAL_KEY:
+            # the parent owns the global model, so its secure rounds fold
+            # in the parent
+            return super().submit_secure(level, cluster_key, client_id,
+                                         round_id, masked_delta, delta)
+        self._record(key)
+        seq = next(self._gseq)
+        bucket = (key, int(round_id))
+        delta_w = delta_to_wire(delta)
+        while True:
+            idx = self.shard_of(key)
+            sh = self._proc_shards[idx]
+            with sh.journal_lock:
+                if self.shard_of(key) != idx:
+                    continue    # migration fenced this key: reroute
+                sh.stats.count_enqueue()    # once, before publish
+                raw = server_proc.packb(
+                    ["ssub", seq, key, int(round_id), str(client_id),
+                     masked_delta, delta_w, self.ring.epoch])
+                sh.journal[seq] = _JournalEntry("secure", key, delta.rounds,
+                                                raw)
+                sh.secure_counts[bucket] = sh.secure_counts.get(bucket, 0) + 1
+                depth = sh.secure_counts[bucket]
+                self._outbox_put(sh, raw)
+            break
+        sh.stats.observe_depth(depth)
+        return depth
+
+    def drain_secure(self, level: str, cluster_key: str | None,
+                     round_id: int, expected_ids) -> int:
+        key = self._key(level, cluster_key)
+        if key == GLOBAL_KEY:
+            return super().drain_secure(level, cluster_key, round_id,
+                                        expected_ids)
+        sh = self._proc_shards[self.shard_of(key)]
+
+        def apply(reply):
+            _, _, folded, recovered, acked, params, meta_w = reply
+            if not folded:
+                return 0
+            rec = self._record(key)
+            with sh.journal_lock:
+                rec.swap(params, meta_from_wire(meta_w))
+                # secure replies always ship params, flushing earlier
+                # meta-only acks of the key with them
+                self._ack(sh, acked)
+                sh.secure_counts.pop((key, int(round_id)), None)
+                sh.dirty.discard(key)
+                counts = sh.deferred.pop(key, None)
+            self._push_replicas(sh, key, params, meta_w)
+            if counts:
+                self._count_drain(counts[0], counts[1], batches=counts[2])
+            self._count_drain(folded, 0, secure=True, recovered=recovered)
+            return folded
+
+        return self._rpc(
+            sh, server_proc.packb(["sdrain", key, int(round_id),
+                                   [str(i) for i in expected_ids]]), apply)
+
+    # ---------------------------------------------------- cluster migration
+    def migrate_cluster(self, cluster_key: str, dst_shard: int) -> int:
+        """Live-migrate one cluster model to another worker; returns the
+        new ownership epoch.
+
+        Under both workers' rpc locks (index order): sync the key's
+        meta-only acks, fence by flipping the ring override (new submits
+        route to the new owner from then on), flush the old owner's outbox,
+        move the key's journal entries and counters to the new owner, then
+        ``mig_export`` (the old worker ships params, queue and secure
+        buckets and tombstones the key) and ``mig_install`` (the new worker
+        takes them, skipping held seqs).  Finally ``mig_redirects``
+        re-delivers submits the old worker parked.  A failure after the
+        journal move falls back to respawning the destination: mirror and
+        journal complete the migration."""
+        key = self._key("cluster", cluster_key)
+        rec = self._record(key)              # unknown cluster -> KeyError
+        dst_i = int(dst_shard)
+        if not 0 <= dst_i < self.n_shards:
+            raise ValueError(f"destination shard {dst_i} out of range "
+                             f"[0, {self.n_shards})")
+        src_i = self.shard_of(key)
+        if src_i == dst_i:
+            # fedlint: unlocked-ok(monotone int; no-op returns current epoch)
+            return self.ring.epoch           # already owned by dst: no-op
+        src, dst = self._proc_shards[src_i], self._proc_shards[dst_i]
+        first, second = (src, dst) if src_i < dst_i else (dst, src)
+        with first.rpc_lock, second.rpc_lock:
+            epoch = self._migrate_locked(key, rec, src, dst)
+        with self._drain_lock:
+            self.n_cluster_migrations += 1
+        return epoch
+
+    def _migrate_locked(self, key: str, rec: ModelRecord, src: _ProcShard,
+                        dst: _ProcShard) -> int:
+        """The fence, ship, ack and replay body of ``migrate_cluster``.
+        Caller holds both shards' rpc locks (index order)."""
+        # 1. flush meta-only acks: then the journal holds exactly the seqs
+        # the src worker still queues for this key
+        if self.mirror_sync_every > 1:
+            with src.journal_lock:
+                dirty = key in src.dirty
+            if dirty:
+                self._sync_shard(src)
+        # 2. fence: from here every submit routes (and journals) to dst
+        epoch = self.ring.assign(key, dst.idx)
+        # 3. pre-fence stragglers in the outbox reach src before the export
+        with src.journal_lock:
+            self._flush_outbox(src)
+        # 4. move the key's journal entries and counters to dst: after this
+        # a dst respawn alone completes the migration
+        a, b = (src, dst) if src.idx < dst.idx else (dst, src)
+        with a.journal_lock, b.journal_lock:
+            for seq in [s for s, e in src.journal.items() if e.key == key]:
+                dst.journal[seq] = src.journal.pop(seq)
+            if key in src.pending_counts:
+                dst.pending_counts[key] = dst.pending_counts.get(key, 0) + \
+                    src.pending_counts.pop(key)
+                dst.pending_rounds[key] = dst.pending_rounds.get(key, 0) + \
+                    src.pending_rounds.pop(key, 0)
+            for bkt in [b for b in src.secure_counts if b[0] == key]:
+                dst.secure_counts[bkt] = dst.secure_counts.get(bkt, 0) + \
+                    src.secure_counts.pop(bkt)
+            if key in src.dirty:          # empty after step 1; defensive
+                src.dirty.discard(key)
+                dst.dirty.add(key)
+            d = src.deferred.pop(key, None)
+            if d is not None:
+                dd = dst.deferred.setdefault(key, [0, 0, 0])
+                for i in range(3):
+                    dd[i] += d[i]
+        # 5. export; a None state means src was respawned mid-export (its
+        # post-flip seed excludes the key): reseed dst instead
+        try:
+            reply = self._exchange(src, server_proc.packb(
+                ["mig_export", key, epoch, dst.idx]))
+            self._check_error(src, reply)
+            state = reply[2]
+        except BaseException:
+            # a deferred submit-path error surfaced on the export: reset
+            # both workers to the journal before re-raising, so the
+            # half-moved key cannot fold twice
+            self._respawn(src)
+            self._respawn(dst)
+            raise
+        if state is None:
+            self._respawn(dst)
+        else:
+            try:
+                reply = self._exchange(dst, server_proc.packb(
+                    ["mig_install", key, epoch, state]))
+                self._check_error(dst, reply)
+            except (RuntimeError, transport.WorkerUnavailable):
+                # journal and mirror are authoritative; a fresh dst seed
+                # and replay complete the migration
+                self._respawn(dst)
+        # 6. re-deliver submits src parked for migrated keys; dst's held-seq
+        # dedup makes a duplicate delivery a no-op
+        try:
+            reply = self._exchange(src, server_proc.packb(["mig_redirects"]))
+            self._check_error(src, reply)
+            redirected = reply[1]
+        except (RuntimeError, transport.WorkerUnavailable):
+            redirected = []   # a respawned src parked nothing
+        if redirected:
+            with dst.journal_lock:
+                for raw in redirected:
+                    self._outbox_put(dst, raw)
+        # 7. the new owner's replicas serve the key from the parent mirror
+        # until the next fold pushes a fresher one
+        params, meta = rec.snapshot()
+        self._push_replicas(dst, key, params, meta_to_wire(meta))
+        return epoch
+
+    # ------------------------------------------------------------- inspection
+    def _count_drain_timeout(self, shard: int | None = None):
+        """Deadline misses, also attributed per worker."""
+        with self._drain_lock:
+            self.n_drain_timeouts += 1
+            if shard is not None:
+                self.n_shard_drain_timeouts[shard] += 1
+
+    def transport_kind(self) -> str:
+        if self.server_hosts is not None:
+            return "tcp"
+        return "inprocess" if self.inprocess else "process"
+
+    def wire_bytes(self) -> tuple[int, int]:
+        """(tx, rx) payload bytes across every worker transport."""
+        tx = sum(sh.handle.tx_bytes for sh in self._proc_shards)
+        rx = sum(sh.handle.rx_bytes for sh in self._proc_shards)
+        for sh in self._proc_shards:
+            tx += sum(h.tx_bytes for h in sh.replicas)
+            rx += sum(h.rx_bytes for h in sh.replicas)
+        return tx, rx
+
+    def agg_stats(self) -> dict:
+        tx, rx = self.wire_bytes()
+        with self._drain_lock:
+            extra = {"processes": 0 if self.inprocess else self.n_shards,
+                     "transport": self.transport_kind(),
+                     "respawns": self.n_respawns,
+                     "mirror_syncs": self.n_mirror_syncs,
+                     "shard_drain_timeouts":
+                         list(self.n_shard_drain_timeouts),
+                     "wire_tx_bytes": tx,
+                     "wire_rx_bytes": rx,
+                     "replicas": sum(len(sh.replicas)
+                                     for sh in self._proc_shards),
+                     "replica_pushes": sum(sh.replica_pushes
+                                           for sh in self._proc_shards),
+                     "replica_drops": sum(sh.replica_drops
+                                          for sh in self._proc_shards),
+                     "ownership_epoch": self.ring.epoch,
+                     "cluster_migrations": self.n_cluster_migrations}
+        return _sharded_agg_stats(self, self._proc_shards, extra)

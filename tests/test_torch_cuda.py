@@ -55,6 +55,12 @@ thread-block cluster up to 196,608 values, a cooperative grid above) and
 gives the same bits twice, on views off alignment too.  The threaded
 runtime's secure run on the card matches the CPU's: the same clusters,
 stats and budgets, Table II within 0.1 pp.
+
+The process server tier: a shard worker on the card folds a drain batch
+with one fold launch, equal to a CPU worker's fold within 1e-6; spawned
+CUDA workers and a subprocess shard server (``--device cuda``) announce
+ready within their cold-start allowance and fold as the in-process
+emulation on the CPU, within 1e-6.
 """
 
 import math
@@ -833,3 +839,93 @@ def test_llm_forward_on_card_matches_cpu(arch, cuda):
     name = "ssd_chunk" if arch == "mamba2-370m" else "local_attn"
     assert launch_counts()[name] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-5)
+
+
+# ------------------------------------------------- the process server tier
+def drawn_trees(dev, n, seed=0):
+    """n forecaster trees drawn on the CPU from one seed, moved to dev
+    (the same values on every device)."""
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=128))
+    gen = torch.Generator().manual_seed(seed)
+    return [tree_map(lambda x: x.to(dev), fc.init(gen, "cpu"))
+            for _ in range(n)]
+
+
+def test_cuda_shard_worker_fold_matches_plain(cuda):
+    """A shard worker on the card folds a drain batch of forecaster trees
+    with one launch of the fold kernel; the same commands through a CPU
+    worker (the plain version) give the same params within 1e-6."""
+    from repro_torch.checkpoint.msgpack_ckpt import packb
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.core.server_proc import ShardWorker, make_seed_blob
+
+    trees = drawn_trees("cpu", 6)
+    blob = make_seed_blob([("c0", trees[0], _meta(50, 1, 1))], 8,
+                          AggregationConfig(), None)
+    workers = [ShardWorker(0, blob, d) for d in (cuda, "cpu")]
+    msgs = [packb(["sub", i, "c0", t, [20 + i, 1, 1], [20 + i, 1, 1], 0])
+            for i, t in enumerate(trees[1:])]
+    replies = []
+    for w in workers:
+        for raw in msgs:
+            w.handle(w.decode(raw))
+        reset_launch_counts()
+        replies.append(w.handle(w.decode(packb(["drain", "c0"]))))
+        if w.device.type == "cuda":
+            torch.cuda.synchronize()
+            assert launch_counts()["fedavg_agg"] == 1
+    (_, _, n, _, batches, acked, got, meta), want = replies[0], replies[1]
+    assert (n, batches, acked, meta) == (5, 1, [0, 1, 2, 3, 4], want[7])
+    for g, p in zip(tree_leaves(got), tree_leaves(want[6]), strict=True):
+        assert g.device.type == "cuda"
+        assert (g.cpu() - p).abs().max().item() <= 1e-6
+
+
+def _meta(s, e, r):
+    from repro_torch.core.aggregation import ModelMeta
+
+    return ModelMeta(s, e, r)
+
+
+def test_spawned_cuda_workers_cold_start_and_fold(cuda):
+    """Two spawned workers and one subprocess shard server on the card:
+    each announces ready within the cold-start allowance, and their folds
+    equal the in-process emulation's on the CPU within 1e-6."""
+    from repro_torch.core.aggregation import UpdateDelta
+    from repro_torch.core.store import ProcessShardedModelStore
+    from repro_torch.core.transport import LoopbackShardServers
+
+    trees = drawn_trees(cuda, 9, seed=1)
+    keys = ["c0", "c1", "c2"]
+    ref = ProcessShardedModelStore(tree_map(lambda x: x.cpu(), trees[0]),
+                                   keys, n_shards=2, inprocess=True,
+                                   device="cpu")
+    with LoopbackShardServers(1, device="cuda") as srv:
+        stores = [ProcessShardedModelStore(trees[0], keys, n_shards=2,
+                                           device=cuda),
+                  ProcessShardedModelStore(trees[0], keys, device=cuda,
+                                           server_hosts=srv.hosts)]
+        cold = [sh.handle.cold_start_s for sh in stores[0]._proc_shards]
+        assert all(0 < c < 180 for c in cold), cold
+        assert 0 < srv.startup_s[0] < 120
+        for i, t in enumerate(trees[1:]):
+            for s in stores + [ref]:
+                p = t if s is not ref else tree_map(lambda x: x.cpu(), t)
+                for key in (keys[i % 3], None):
+                    s.handle_model_update(
+                        "global" if key is None else "cluster", key, p,
+                        _meta(10 + i, 1, 1), UpdateDelta(10 + i, 1, 1))
+        for s in stores + [ref]:
+            s.drain_all()
+        for s in stores:
+            stats = s.agg_stats()
+            assert stats["respawns"] == 0 and stats["drain_timeouts"] == 0
+            for level, key in [("global", None)] + [("cluster", k)
+                                                   for k in keys]:
+                assert s.meta(level, key) == ref.meta(level, key)
+                for g, p in zip(tree_leaves(s.params(level, key)),
+                                tree_leaves(ref.params(level, key)),
+                                strict=True):
+                    assert g.device.type == "cuda"
+                    assert (g.cpu() - p).abs().max().item() <= 1e-6
+            s.close()

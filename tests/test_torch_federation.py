@@ -22,8 +22,14 @@ from repro.core.fedccl import FedCCLConfig as JaxFedCCLConfig
 from repro.core.protocol import ClientSpec as JaxClientSpec
 from repro_torch.core import aggregation as agg
 from repro_torch.core.fedccl import ClusterSpaceConfig, FedCCL, FedCCLConfig
+from repro_torch.core.fetch import FetchClient
 from repro_torch.core.protocol import ClientSpec
-from repro_torch.core.store import ModelStore, ShardedModelStore
+from repro_torch.core.store import (
+    ModelStore,
+    ProcessShardedModelStore,
+    ShardedModelStore,
+)
+from repro_torch.core.transport import WorkerUnavailable
 from repro_torch.data.solar import generate_fleet
 from repro_torch.data.windows import make_windows, split_windows
 from repro_torch.models.lstm import SolarForecaster
@@ -254,9 +260,30 @@ def test_privacy_report_has_the_reference_shape(privacy):
     {"server_processes": 2}, {"server_hosts": ("localhost:1",)},
     {"fetch_from_workers": True}, {"telemetry": True}])
 def test_later_slices_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
-               device="cpu")
+    """Telemetry still raises ``NotImplementedError``.  The process, TCP
+    and read tiers are ported: they build their store and fetch client,
+    and a shard server nobody listens for raises the transport's error
+    (after the connect deadline's 10 s of retries)."""
+    if "telemetry" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
+                   device="cpu")
+        return
+    if "server_hosts" in option:
+        with pytest.raises(WorkerUnavailable, match="localhost:1"):
+            FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
+                   device="cpu")
+        return
+    fed = FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
+                 device="cpu")
+    if "server_processes" in option:
+        assert isinstance(fed.store, ProcessShardedModelStore)
+        assert fed.store.transport_kind() == "inprocess"   # the sim's
+        assert fed.store.n_shards == 2
+    else:
+        assert isinstance(fed.fetcher, FetchClient)
+        assert not fed.fetcher.use_workers      # no TCP servers: parent
+    fed.shutdown()
 
 
 # ------------------------------------------------------- immutability
