@@ -73,7 +73,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
              store (stats equal but for the shard fields, metas equal,
              params within 1e-5 x max(1, max|p|), fold launches equal to
              the N-way sums the recorded folds imply); the same sim at
-             hidden 16 on the card against the CPU; the threaded runtime
+             hidden 16 on the card against the CPU (the CPU half in a
+             child process that runs beside phases 7-13; checked at the
+             end); the threaded runtime
              batched (two per-shard drain workers and a global one; exact
              accounting, one more round profiled beside the flat run's) and
              secure + DP (as in phase 6); one two-level fold of forecaster
@@ -109,7 +111,35 @@ Phases, each fatal on failure (non-zero exit, no final line):
              rounds = fold launches); and ``benchmarks/multiproc_store.py``'s
              mixed storm with the forecaster's tree on the process and the
              TCP store (submits/s, fetches/s, coalesce factor, wire bytes).
-9. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
+9. telemetry — ``FedCCLConfig(telemetry=True)`` and the stores' sinks,
+             counters set to 0 before each counted run: the main path's
+             sim at full width, batched, with telemetry on and off (Table
+             II, clusters and ``async_stats`` bit-equal), its deterministic
+             histograms (staleness, coalesce batch, queue depth) equal to
+             the same sim's at hidden 16 on the card and on the CPU (the
+             child of phase 7, after its first job; checked at the end);
+             the threaded batched run on and off (exact accounting, the JSON report's
+             histograms with ``drain_fold_ns_cuda``, a Prometheus page that
+             parses, a trace with flow chains, wall times); the
+             reference's telemetry-parity schedule through the flat, the
+             4-shard, the 2-spawned-worker and the 2-server TCP store (the
+             same staleness histogram, one submit and one enqueue event
+             an update, 3 sites for the worker tiers, a submit's trace
+             chain reaching a worker's fold); and the flat store stress's
+             submits/s with telemetry on and off.
+10. scenario — the scenario engine (``repro_torch.scenario``) on the card:
+             ``diurnal_churn(100_000, 24, seed=3)`` on single, sharded,
+             process (2 spawned CUDA workers) and tcp (2 ``--device cuda``
+             servers, shared with phase 9) within the reference acceptance
+             test's SLO bounds, equal across topologies, fold launches =
+             implied where the folds run here, the single run equal to the
+             CPU's; ``drift_ewc(5_000, 32)`` at the forecaster's width
+             (141,953), lambda 25 and 0 on single and sharded, the four
+             runs on four threads (``ewc_update`` launches = the runs'
+             kernel calls, the EWC runs nearer their season-A anchors),
+             and at width 1,024 against the CPU; a flash crowd with DP
+             whose epsilon equals the CPU's.
+11. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
              tokens) and gemma-2b (2 x 2048) at full width and depth in
              bf16, counters reset before and read after each run: exactly
              one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
@@ -122,7 +152,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              (examples/serve_batched.py's mix), no kernel launched, and
              ragged equal to independent decoding (held in f32, reported
              in bf16).
-10. agree  — small runs on CUDA (kernels) and on the CPU (plain versions)
+12. agree  — small runs on CUDA (kernels) and on the CPU (plain versions)
              from the same initial weights, without privacy, with DP and
              secure aggregation, and with DP alone (at a smaller clip, see
              AGREE_DP_CLIP): Table II must agree;
@@ -136,7 +166,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              The LLM path: decode by replay against the kernel forward (f32,
              full width, 4 layers, T 64), and the CUDA loss against the CPU
              loss from the same weights (f32, full width, 2 layers).
-11. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
+13. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
              subprocess on the card: exit 0, Table II printed and, in its
              ``solar_report.json``, finite and inside the system test's
              bounds.
@@ -1819,17 +1849,19 @@ def reduce_sums(n: int, width: int) -> int:
     return sums + (left > 1)
 
 
-def implied_launches(folds) -> int:
+def implied_launches(folds, cfg=None) -> int:
     """The fold kernel launches the recorded folds imply, from their
-    metadata alone: a flat fold with more than one surviving set is one
+    metadata alone (planned under ``cfg``, the stores' config; default
+    ``AggregationConfig()``): a flat fold with more than one surviving set is one
     sum; a two-level fold makes one sum per per-shard chunk of more than
     one member and one per merge of more than one entry (none for a lone
     survivor); the process store's global drain makes each worker's
     reduction of its nonzero-weight members and the parent's merge of the
     base (when its weight is nonzero) with the nonempty partials.  Each
     sum here has at most 64 sets: one launch."""
-    from repro_torch.core.aggregation import plan_coalesce
+    from repro_torch.core.aggregation import AggregationConfig, plan_coalesce
 
+    cfg = AggregationConfig() if cfg is None else cfg
     total = 0
     merge = None          # the open process-tier global drain
     for kind, base, batches, seqs, max_width in folds:
@@ -1842,18 +1874,18 @@ def implied_launches(folds) -> int:
                                  merge["width"])
             merge = None
         if kind == "merge":
-            plan = plan_coalesce(base, batches)
+            plan = plan_coalesce(base, batches, cfg)
             merge = {"base": int(plan.weights[0] != 0.0), "partials": 0,
                      "width": max_width}
             continue
         if kind == "flat":
-            plan = plan_coalesce(base, batches)
+            plan = plan_coalesce(base, batches, cfg)
             total += sum(w != 0.0 for w in plan.weights) > 1
             continue
         order = sorted((seqs[k][j] if seqs is not None else (k, j), k, m, d)
                        for k, b in enumerate(batches)
                        for j, (m, d) in enumerate(b))
-        plan = plan_coalesce(base, [(m, d) for _, _, m, d in order])
+        plan = plan_coalesce(base, [(m, d) for _, _, m, d in order], cfg)
         survivors = {}
         for (_, k, _, _), w in zip(order, plan.weights[1:], strict=True):
             if w != 0.0:
@@ -1955,23 +1987,49 @@ def sharded_sim(dev):
     return counts, routes, fed
 
 
-def sharded_cuda_vs_cpu(dev):
-    """The sharded sim at hidden 16 on the card and on the CPU from one
-    init: stats and metas equal, params within DROPOUT_ATOL."""
-    feds = [threaded_fed(d, 16, runtime="sim", **SHARDED)
-            for d in (dev, "cpu")]
-    stats, walls = [], []
-    for fed in feds:
-        t0 = time.perf_counter()
-        stats.append(fed.run(rounds=MAIN_PATH["rounds"]))
-        walls.append(time.perf_counter() - t0)
-    require(stats[0] == stats[1], f"sharded sim at hidden 16: stats differ "
-            f"{stats}")
-    require_same_metas(feds[0].store, feds[1].store, "sharded CUDA vs CPU")
-    gap, _ = params_gap(feds[0].store, feds[1].store)
-    print(f"[sharded] sim at hidden 16, CUDA vs CPU ({walls[0]:.1f} s and "
-          f"{walls[1]:.1f} s): stats and metas equal, params max abs diff "
-          f"{gap:.3e} (limit {DROPOUT_ATOL}); card: {card_line()}")
+def store_state(store) -> dict:
+    """Every model's meta and params of a store, as JSON: ``{"level:key":
+    [[samples, epochs, round], [leaf values, ...]]}``."""
+    from repro_torch.utils.tree import tree_leaves
+
+    out = {}
+    for level, key in model_keys(store):
+        m = store.meta(level, key)
+        out[f"{level}:{key}"] = [
+            [m.samples_learned, m.epochs_learned, m.round],
+            [x.detach().cpu().reshape(-1).tolist()
+             for x in tree_leaves(store.params(level, key))]]
+    return out
+
+
+def sharded_sim16(dev) -> dict:
+    """The sharded sim at hidden 16 on ``dev``: its stats, models and wall
+    time (phase 7's card half; the CPU child runs the CPU half)."""
+    fed = threaded_fed(dev, 16, runtime="sim", **SHARDED)
+    t0 = time.perf_counter()
+    stats = fed.run(rounds=MAIN_PATH["rounds"])
+    return {"stats": stats, "models": store_state(fed.store),
+            "wall_s": time.perf_counter() - t0}
+
+
+def check_sharded_cpu(card, cpu):
+    """The sharded sim at hidden 16, card against CPU from one init: stats
+    and metas equal, params within DROPOUT_ATOL."""
+    require(card["stats"] == cpu["stats"], f"sharded sim at hidden 16: "
+            f"stats differ {card['stats']} {cpu['stats']}")
+    require(sorted(card["models"]) == sorted(cpu["models"]),
+            "sharded CUDA vs CPU: models differ")
+    gap = 0.0
+    for name, (meta, leaves) in card["models"].items():
+        cmeta, cleaves = cpu["models"][name]
+        require(meta == cmeta, f"sharded CUDA vs CPU: {name} meta {meta} != "
+                               f"{cmeta}")
+        for x, y in zip(leaves, cleaves, strict=True):
+            gap = max([gap] + [abs(a - b) for a, b in zip(x, y, strict=True)])
+    print(f"[sharded] sim at hidden 16, CUDA vs CPU ({card['wall_s']:.1f} s "
+          f"and {cpu['wall_s']:.1f} s, the CPU half in the child process): "
+          f"stats and metas equal, params max abs diff {gap:.3e} (limit "
+          f"{DROPOUT_ATOL}); card: {card_line()}")
     require(gap <= DROPOUT_ATOL, f"sharded sim: CUDA and CPU params differ "
             f"by {gap}")
 
@@ -2225,16 +2283,17 @@ def check_checkpoint(dev, store):
           f"card: {card_line()}")
 
 
-def phase_sharded(dev, flat_idle) -> tuple[dict, dict]:
+def phase_sharded(dev, flat_idle) -> tuple[dict, dict, dict]:
     """The thread-sharded server (``FedCCLConfig(server_shards=2)``) at the
-    main path's full width: the sim against the flat store, the sim on
-    CUDA against the CPU, the threaded runtime batched (per-shard drain
-    workers) and secure + DP, the two-level fold against its plain
-    version, the store stress and the checkpoint.  Returns the launches
-    and routes of the sim and the two threaded runs summed (counters set
-    to 0 before each)."""
+    main path's full width: the sim against the flat store, the sim at
+    hidden 16 on the card (its CPU half runs in the CPU child), the
+    threaded runtime batched (per-shard drain workers) and secure + DP,
+    the two-level fold against its plain version, the store stress and
+    the checkpoint.  Returns the launches and routes of the sim and the
+    two threaded runs summed (counters set to 0 before each), and the
+    hidden-16 sim's result for ``check_sharded_cpu``."""
     sim_counts, sim_routes, sim = sharded_sim(dev)
-    sharded_cuda_vs_cpu(dev)
+    card16 = sharded_sim16(dev)
     c2, r2, idle = threaded_batched(dev, "sharded", server_shards=2)
     print(f"[sharded] idle share of one more threaded batched round: "
           f"sharded {idle}, flat {flat_idle} (phase threaded); card: "
@@ -2248,7 +2307,7 @@ def phase_sharded(dev, flat_idle) -> tuple[dict, dict]:
     check_two_level_fold(dev)
     sharded_stress(dev)
     check_checkpoint(dev, sim.store)
-    return counts, routes
+    return counts, routes, card16
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2604,6 +2663,727 @@ def phase_process(dev) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------------ phase 9
+# telemetry: the main path's sim batched at the threaded runs' max_coalesce
+# (the flat store; its histograms are those of a queue), the reference's
+# telemetry-parity schedule (tests/test_store_equivalence.py: 40 updates,
+# 5 cluster keys, max_coalesce 5), and the flat store stress of phase 7
+TELEMETRY_SIM = dict(batch_aggregation=True, max_coalesce=8)
+# histograms that do not depend on time: equal across devices, widths
+# (the sim's schedule does not depend on hidden) and topologies
+DETERMINISTIC_HISTS = ("staleness_at_fold", "coalesce_batch", "queue_depth",
+                       "submit_batch")
+REPORT_HISTS = ("submit_latency_ns", "queue_depth", "staleness_at_fold",
+                "coalesce_batch")
+PARITY = dict(n_updates=40, n_keys=5, max_coalesce=5, seed=42)
+
+
+class patched_solar:
+    """``run_fedccl_solar`` with extra ``FedCCLConfig`` fields; records the
+    ``FedCCL`` it builds (the block yields the list)."""
+
+    def __init__(self, **extra):
+        self.extra = extra
+
+    def __enter__(self):
+        import functools
+        import repro_torch.training.fed_solar as fed_solar
+
+        self._saved = (fed_solar.FedCCLConfig, fed_solar.FedCCL)
+        cfg_cls, fed_cls = self._saved
+        self.feds = []
+
+        def make(*a, **kw):
+            self.feds.append(fed_cls(*a, **kw))
+            return self.feds[-1]
+
+        fed_solar.FedCCLConfig = functools.partial(cfg_cls, **self.extra)
+        fed_solar.FedCCL = make
+        return self.feds
+
+    def __exit__(self, *exc):
+        import repro_torch.training.fed_solar as fed_solar
+
+        fed_solar.FedCCLConfig, fed_solar.FedCCL = self._saved
+        return False
+
+
+def deterministic_hists(histograms) -> dict:
+    return {name: histograms.get(name) for name in DETERMINISTIC_HISTS}
+
+
+def merged_hists(dump) -> dict:
+    from repro_torch.obs.export import merged_metrics
+
+    return merged_metrics(dump)["histograms"]
+
+
+def cpu_child(out_dir):
+    """The CPU child's job (``start_cpu_child``): the CPU halves of two
+    card-against-CPU checks at hidden 16, one after the other, each
+    result written to ``out_dir`` as JSON: phase 7's sharded sim
+    (``sharded.json``) and phase 9's telemetry sim (``telemetry.json``:
+    its stats and deterministic histograms)."""
+    import torch
+
+    sys.path.insert(0, str(REPO / "src"))
+    torch.set_num_threads(2)
+    out_dir = Path(out_dir)
+    (out_dir / "sharded.json").write_text(json.dumps(sharded_sim16("cpu")))
+    t0 = time.perf_counter()
+    fed = threaded_fed("cpu", 16, runtime="sim", telemetry=True,
+                       **TELEMETRY_SIM)
+    stats = fed.run(rounds=MAIN_PATH["rounds"])
+    hists = deterministic_hists(merged_hists(fed.store.telemetry_dump()))
+    (out_dir / "telemetry.json").write_text(json.dumps(
+        {"stats": stats, "hists": hists,
+         "wall_s": time.perf_counter() - t0}))
+
+
+class CpuChild:
+    """``cpu_child`` in a process of its own (two CPU threads, no card),
+    started before phase 7, so its minutes on the CPU overlap the phases
+    on the card; ``result(name)`` waits for it and reads one result."""
+
+    def __init__(self):
+        import tempfile
+
+        self._dir = tempfile.TemporaryDirectory()
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONHASHSEED="0",
+                   PYTHONPATH=os.pathsep.join([str(REPO / "src"),
+                                               str(REPO)]))
+        self._err = open(Path(self._dir.name) / "stderr", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.cpu_child({self._dir.name!r})"],
+            cwd=str(REPO), env=env, stdout=subprocess.DEVNULL,
+            stderr=self._err)
+
+    def result(self, name: str) -> dict:
+        path = Path(self._dir.name) / f"{name}.json"
+        try:
+            self.proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            self.close()
+        require(self.proc.returncode == 0 and path.exists(),
+                f"the CPU child failed (exit {self.proc.returncode}): "
+                f"{(Path(self._dir.name) / 'stderr').read_text()[-2000:]}")
+        return json.loads(path.read_text())
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(10.0)
+        self._err.close()
+        self._dir.cleanup()
+
+
+def telemetry_sim(dev):
+    """The main path at full width under the sim, batched, telemetry on and
+    off, counters set to 0 before each: Table II, §IV.E, clusters and
+    ``async_stats`` bit-equal; then the same sim at hidden 16 on the card,
+    whose deterministic histograms must equal the full-width run's.
+    Returns (counts, routes, hidden-16 stats and histograms)."""
+    runs = {}
+    for on in (True, False):
+        with patched_solar(telemetry=on, **TELEMETRY_SIM) as feds:
+            report, counts, routes, wall = counted_run(dev, MAIN_PATH)
+        runs[on] = (report, counts, routes, feds[0])
+        print(f"[telemetry] sim, main path batched "
+              f"({json.dumps(TELEMETRY_SIM)}), telemetry {on}: {wall:.1f} s "
+              f"({wall:.4f} s); launches {json.dumps(counts)}")
+        require_sequence_route(counts, routes, f"telemetry sim ({on})")
+        check_table(report, f"telemetry sim ({on})")
+    (on, c_on, r_on, fed), (off, c_off, r_off, _) = runs[True], runs[False]
+    for key in ("clusters", "table2", "independent", "async_stats"):
+        require(on[key] == off[key], f"telemetry sim: {key} changes with "
+                f"telemetry on: {on[key]} {off[key]}")
+    dump = fed.store.telemetry_dump()
+    hists = deterministic_hists(merged_hists(dump))
+    require(hists["staleness_at_fold"] is not None
+            and hists["staleness_at_fold"]["count"]
+            == on["async_stats"]["updates"],
+            f"telemetry sim: staleness observed {hists['staleness_at_fold']}"
+            f" for {on['async_stats']['updates']} updates")
+    fed16 = threaded_fed(dev, 16, runtime="sim", telemetry=True,
+                         **TELEMETRY_SIM)
+    t0 = time.perf_counter()
+    stats16 = fed16.run(rounds=MAIN_PATH["rounds"])
+    wall16 = time.perf_counter() - t0
+    hists16 = deterministic_hists(merged_hists(fed16.store.telemetry_dump()))
+    print(f"[telemetry] sim: Table II, §IV.E, clusters and async_stats "
+          f"bit-equal with telemetry on and off; {len(dump['sites'][0]['events'])}"
+          f" events, dropped {dump['sites'][0]['dropped']}; deterministic "
+          f"histograms (count, sum, max) "
+          f"{json.dumps({k: v and [v['count'], v['sum'], v['max']] for k, v in hists.items()})}"
+          f"; the sim at hidden 16 on the card: {wall16:.1f} s; card: "
+          f"{card_line()}")
+    require(hists16 == hists, "telemetry sim: the hidden-16 run's "
+            "deterministic histograms differ from the full-width run's")
+    require(stats16 == on["async_stats"], f"telemetry sim: hidden-16 stats "
+            f"{stats16} differ from the full width's {on['async_stats']}")
+    counts, routes = sum_counts((c_on, r_on), (c_off, r_off))
+    return counts, routes, stats16, hists16
+
+
+def check_telemetry_cpu(got, stats16, hists16):
+    """The CPU child's stats and deterministic histograms equal the card's
+    at hidden 16 (equal width, two devices)."""
+    print(f"[telemetry] sim at hidden 16 on the CPU (a child process, two "
+          f"threads): {got['wall_s']:.1f} s; stats and deterministic "
+          f"histograms equal to the card's: "
+          f"{got['stats'] == stats16 and got['hists'] == hists16}")
+    require(got["stats"] == stats16, f"telemetry: CPU stats {got['stats']} "
+            f"differ from the card's {stats16}")
+    require(got["hists"] == hists16, "telemetry: the CPU run's "
+            "deterministic histograms differ from the card's")
+
+
+def telemetry_threaded(dev):
+    """The threaded batched run at full width with telemetry on and off,
+    counters set to 0 before each: exact accounting; the JSON report holds
+    the store's histograms (the fold's on the CUDA route), the Prometheus
+    page parses line by line, and the trace loads as JSON with at least
+    one flow chain.  Returns (counts, routes)."""
+    import tempfile
+
+    rounds, hidden = MAIN_PATH["rounds"], MAIN_PATH["hidden"]
+    # the fold's route: the kernel on the card (the plain version elsewhere)
+    fold_hist = "drain_fold_ns_" + ("cuda" if dev.type == "cuda" else "host")
+    runs, walls = [], {}
+    for on in (True, False):
+        fed = threaded_fed(dev, hidden, telemetry=on, **TELEMETRY_SIM)
+        stats, counts, routes, wall = counted_fed(fed, rounds)
+        walls[on] = wall
+        require_exact_accounting(fed, stats, rounds, f"telemetry threaded "
+                                                     f"({on})")
+        require_sequence_route(counts, routes, f"telemetry threaded ({on})")
+        runs.append((counts, routes))
+        if on:
+            rep = fed.metrics_report("json")
+            missing = [h for h in (*REPORT_HISTS, fold_hist)
+                       if h not in rep["histograms"]]
+            require(not missing, f"telemetry threaded: the report lacks "
+                                 f"{missing}")
+            page = fed.metrics_report("prometheus").splitlines()
+            for line in page:
+                require(line.startswith("# TYPE fedccl_") or (
+                    line.startswith("fedccl_") and len(line.split(" ")) == 2
+                    and math.isfinite(float(line.split(" ")[1]))),
+                    f"telemetry threaded: bad Prometheus line {line!r}")
+            dump = fed.store.telemetry_dump()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = Path(tmp) / "trace.json"
+                fed.write_trace(path)
+                trace = json.loads(path.read_text())
+            flows = {e["id"] for e in trace["traceEvents"]
+                     if e["ph"] in ("s", "t", "f")}
+            n_events = sum(len(s["events"]) for s in dump["sites"])
+            fold = rep["histograms"][fold_hist]
+            print(f"[telemetry] threaded batched, telemetry on: "
+                  f"{n_events} events, dropped {rep['dropped_events']}, "
+                  f"{len(flows)} flow chains, {len(page)} Prometheus lines;"
+                  f" {fold_hist} (host time of the call) count "
+                  f"{fold['count']} p50 {fold['p50']} p95 {fold['p95']}; "
+                  f"submit_latency_ns p95 "
+                  f"{rep['histograms']['submit_latency_ns']['p95']}")
+            require(flows, "telemetry threaded: the trace has no flow chain")
+        fed.shutdown()
+    print(f"[telemetry] threaded batched wall: telemetry on "
+          f"{walls[True]:.4f} s, off {walls[False]:.4f} s; card: "
+          f"{card_line()}")
+    return sum_counts(*runs)
+
+
+def parity_events(dev):
+    """The reference's telemetry-parity schedule (``make_schedule`` of
+    ``tests/test_store_equivalence.py``: 40 updates over the global model
+    and 5 cluster keys, a fifth fresh) with its trees on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregation import ModelMeta, UpdateDelta
+    from repro_torch.core.store import GLOBAL_KEY
+
+    rng = np.random.default_rng(PARITY["seed"])
+
+    def tree():
+        return {"a": torch.from_numpy(rng.standard_normal((4, 3)).astype(
+                    np.float32)).to(dev),
+                "b": torch.from_numpy(rng.standard_normal(5).astype(
+                    np.float32)).to(dev)}
+
+    init = tree()
+    keys = [f"loc:{i}" for i in range(PARITY["n_keys"])]
+    models = [GLOBAL_KEY] + keys
+    counts = {m: 0 for m in models}
+    events = []
+    for _ in range(PARITY["n_updates"]):
+        m = models[int(rng.integers(len(models)))]
+        s = int(rng.integers(1, 300))
+        fresh = rng.random() < 0.2
+        events.append((m, tree(), ModelMeta(s, 1, counts[m] + 1 if fresh
+                                            else 1), UpdateDelta(s, 1, 1)))
+        counts[m] += 1
+    return init, keys, events
+
+
+def replay_parity(store, events, seed):
+    """The reference's ``replay_through_store``: drains at seeded random
+    points, then one ``drain_all``."""
+    import numpy as np
+    from repro_torch.core.store import GLOBAL_KEY
+
+    rng = np.random.default_rng(seed)
+    for m, p, meta, delta in events:
+        level, key = ("global", None) if m == GLOBAL_KEY else ("cluster", m)
+        store.handle_model_update(level, key, p, meta, delta)
+        if rng.random() < 0.3:
+            if rng.random() < 0.5:
+                store.drain(level, key)
+            else:
+                store.drain_all()
+    store.drain_all()
+
+
+def chain_ids(events) -> set:
+    """The flow-chain ids of a site's events, as ``perfetto_trace`` joins
+    them: the trace id and each wire seq + 1."""
+    out = set()
+    for _, _, _, trace, _, args in events:
+        seqs = list((args or {}).get("seqs") or ())
+        if (args or {}).get("seq") is not None:
+            seqs.append(args["seq"])
+        out |= {trace, *(int(s) + 1 for s in seqs)}
+    return out - {0}
+
+
+def telemetry_parity(dev, srv):
+    """The parity schedule through the flat store, the sharded store at 4
+    shards, ``ProcessShardedModelStore`` on 2 spawned CUDA workers and on
+    the two ``--device cuda`` subprocess servers: the same
+    ``staleness_at_fold`` histogram, one submit and one enqueue event per
+    update; 3 sites for the process and TCP stores, and a trace id of the
+    parent's site in a worker's site (its ``worker.fold`` consumes the
+    sampled submit's wire seq).  Returns (counts, routes)."""
+    import torch
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.core.store import (
+        ModelStore,
+        ProcessShardedModelStore,
+        ShardedModelStore,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs.export import perfetto_trace
+    from repro_torch.obs.record import Telemetry
+
+    init, keys, events = parity_events(dev)
+    nofast = AggregationConfig(sequential_fast_path=False)
+    kw = dict(agg_cfg=nofast,
+              batch_aggregation=True, max_coalesce=PARITY["max_coalesce"])
+    builds = {
+        "flat": lambda tel: ModelStore(init, keys, telemetry=tel, **kw),
+        "sharded": lambda tel: ShardedModelStore(init, keys, n_shards=4,
+                                                 telemetry=tel, **kw),
+        "process": lambda tel: ProcessShardedModelStore(
+            init, keys, n_shards=2, device=dev, telemetry=tel, **kw),
+        "tcp": lambda tel: ProcessShardedModelStore(
+            init, keys, server_hosts=srv.hosts, device=dev,
+            drain_timeout_s=60.0, telemetry=tel, **kw)}
+    runs, ref = [], None
+    for i, (name, build) in enumerate(builds.items()):
+        store = build(Telemetry())
+        with recording_folds(PARITY["max_coalesce"]) as folds:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            replay_parity(store, events, 10 + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        dump = store.telemetry_dump()       # obsdump needs live workers
+        if hasattr(store, "close"):
+            store.close()
+        runs.append((counts, route_counts({})))
+        stale = merged_hists(dump)["staleness_at_fold"]
+        names = [ev[2] for site in dump["sites"] for ev in site["events"]]
+        sites = [s["site"] for s in dump["sites"]]
+        print(f"[telemetry] parity schedule, {name}: {wall:.4f} s; sites "
+              f"{sites}; submits {names.count('submit')}, enqueues "
+              f"{names.count('enqueue')}, worker folds "
+              f"{names.count('worker.fold')}; staleness_at_fold count "
+              f"{stale['count']} sum {stale['sum']} max {stale['max']}; "
+              f"fold launches here {counts['fedavg_agg']}")
+        n = PARITY["n_updates"]
+        require(names.count("submit") == names.count("enqueue") == n,
+                f"parity {name}: {names.count('submit')} submits, "
+                f"{names.count('enqueue')} enqueues for {n} updates")
+        require(stale["count"] == n, f"parity {name}: staleness observed "
+                                     f"{stale['count']} times")
+        if ref is None:
+            ref = stale
+        require(stale == ref, f"parity {name}: staleness histogram differs "
+                              f"from the flat store's")
+        if name in ("flat", "sharded"):
+            implied = implied_launches(folds, nofast)
+            require(counts["fedavg_agg"] == implied, f"parity {name}: "
+                    f"{counts['fedavg_agg']} fold launches, implied "
+                    f"{implied}")
+            require(sites == ["parent"], f"parity {name}: sites {sites}")
+            continue
+        require(sites == ["parent", "shard-0", "shard-1"],
+                f"parity {name}: sites {sites}")
+        parent = chain_ids(ev for ev in dump["sites"][0]["events"]
+                           if ev[2] == "submit")
+        workers = set().union(*(chain_ids(s["events"])
+                                for s in dump["sites"][1:]))
+        flows = {(e["id"], e["pid"]) for e in perfetto_trace(
+            dump)["traceEvents"] if e["ph"] in ("s", "t", "f")}
+        crossing = {i for i, p in flows if p == 0} & \
+            {i for i, p in flows if p > 0}
+        print(f"[telemetry] parity {name}: {len(parent & workers)} sampled "
+              f"submits' trace ids reach a worker's fold; {len(crossing)} "
+              f"flow chains cross from the parent to a worker")
+        require(parent & workers and crossing, f"parity {name}: no trace "
+                "chain spans the parent and a worker")
+    return sum_counts(*runs)
+
+
+def telemetry_overhead(dev):
+    """The flat store stress of phase 7 (8 writers x 150 cluster and global
+    submits, the forecaster's tree) with telemetry off, on, on and off,
+    three times: exact accounting, submits/s of each.  Returns (counts,
+    routes)."""
+    import torch
+    from repro_torch.configs.solar_lstm import SolarLSTMConfig
+    from repro_torch.core.store import ModelStore
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lstm import SolarForecaster
+    from repro_torch.obs.record import Telemetry
+
+    n_w, per, n_c = (STRESS[x] for x in ("writers", "per_writer",
+                                          "clusters"))
+    fc = SolarForecaster(SolarLSTMConfig(hidden_size=MAIN_PATH["hidden"]))
+    gen = torch.Generator(device=dev).manual_seed(100)
+    pools = [[fc.init(gen, dev) for _ in range(STRESS["pool"])]
+             for _ in range(n_w)]
+    init = fc.init(gen, dev)
+    keys = [f"c{i}" for i in range(n_c)]
+    draws, want = stress_draws(n_w, per, n_c)
+    kw = dict(batch_aggregation=True, max_coalesce=STRESS["max_coalesce"])
+    rates, runs = {True: [], False: []}, []
+    for on in (False, True, True, False) * 3:   # in turns
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        row = stress_store(
+            f"flat_batched telemetry {'on' if on else 'off'}",
+            ModelStore(init, keys, telemetry=Telemetry() if on else None,
+                       **kw), pools, draws, want, tag="telemetry")
+        rates[on].append(row["submits_per_s"])
+        runs.append((launch_counts(), route_counts({})))
+    med = {on: sorted(r)[len(r) // 2] for on, r in rates.items()}
+    print(f"[telemetry] overhead: store stress submits/s in turns (off, on, "
+          f"on, off) x 3: telemetry on {rates[True]}, off {rates[False]}; "
+          f"upper medians on {med[True]:.1f}, off {med[False]:.1f}; card: "
+          f"{card_line()}")
+    return sum_counts(*runs)
+
+
+def phase_telemetry(dev, srv) -> tuple[dict, dict, tuple]:
+    """Telemetry on the port's paths: the main path's sim and the threaded
+    run at full width (on and off), the parity schedule through every
+    store tier, the store stress's overhead.  Returns the launches and
+    routes of its runs summed (counters set to 0 before each) and the
+    hidden-16 sim's (stats, histograms) for the CPU child's check."""
+    c1, r1, stats16, hists16 = telemetry_sim(dev)
+    counts, routes = sum_counts((c1, r1), telemetry_threaded(dev),
+                                telemetry_parity(dev, srv),
+                                telemetry_overhead(dev))
+    for name in MAIN_KERNELS:
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                                  "telemetry path")
+    return counts, routes, (stats16, hists16)
+
+
+# ----------------------------------------------------------------- phase 10
+# scenarios: the reference acceptance run (tests/test_scenarios.py:30-46)
+# on every topology; the drift preset at the forecaster's width, its four
+# runs on four threads (the client noise is ~1.4e9 numpy normals a run,
+# drawn with the interpreter lock released); a DP flash crowd
+DIURNAL = dict(n_clients=100_000, n_ticks=24, seed=3)
+DIURNAL_SLO = dict(lost_updates=0, effective_round_regressions=0,
+                   drain_timeouts=0, staleness_p95=4096)
+DRIFT = dict(n_clients=5_000, n_ticks=32, period=32, seed=13)
+DRIFT_LAMBDA = 25.0
+DRIFT_AGREE_DIM = 1_024
+FLASH_DP = dict(n_clients=1_000, n_ticks=6, n_clusters=4, seed=7,
+                dp_noise_multiplier=1.2)
+TIMING_SLOS = ("submit_p95_ns", "fetch_p95_ns", "drain_p95_ns")
+
+
+def report_fields(rep) -> dict:
+    """Everything of a ScenarioReport that is not a timing (params aside)."""
+    return {"submitted": rep.submitted, "fetched": rep.fetched,
+            "population_peak": rep.population_peak, "ticks": rep.ticks,
+            "stats": rep.stats,
+            "slo": {k: v for k, v in rep.slo.items() if k not in TIMING_SLOS},
+            "hists": deterministic_hists(rep.metrics["histograms"]),
+            "ewc": {k: rep.ewc[k] for k in ("kernel_calls", "season")}}
+
+
+def final_gap(a, b) -> tuple[float, float]:
+    """(max abs difference of two reports' final params and anchors, max
+    |p| of the first)."""
+    gap = top = 0.0
+    for part in ("final_params", "anchors"):
+        require(sorted(a.ewc[part]) == sorted(b.ewc[part]),
+                f"scenario: {part} keys differ")
+        for k, v in a.ewc[part].items():
+            gap = max(gap, float(abs(v - b.ewc[part][k]).max()))
+            top = max(top, float(abs(v).max()))
+    return gap, top
+
+
+def scenario_run(scen, dev, **kw):
+    """``run_scenario`` with the counters set to 0 just before and read
+    just after and the folds recorded; returns (report, counts, routes,
+    wall, folds)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.scenario import run_scenario
+
+    with recording_folds(kw.get("max_coalesce", 16)) as folds:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = run_scenario(scen, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    return rep, counts, route_counts({}), wall, folds
+
+
+def print_scenario(rep, counts, wall, tag):
+    launches = ("launches counted for the four runs together" if counts is
+                None else f"fold launches {counts['fedavg_agg']}, "
+                          f"ewc_update launches {counts['ewc_update']}")
+    print(f"[scenario] {tag}: {wall:.2f} s ({wall:.4f} s; run_scenario's "
+          f"own clock {rep.wall_s:.4f} s), {rep.submitted} submits "
+          f"({rep.submitted / wall:.1f}/s), {rep.fetched} fetches, "
+          f"population peak {rep.population_peak}; {launches}; slo "
+          f"{json.dumps(rep.slo)}")
+
+
+def scenario_diurnal(dev, srv):
+    """``diurnal_churn(100_000, 24, seed=3)`` on single, sharded (4),
+    process (2 spawned CUDA workers) and tcp (the two subprocess servers):
+    the reference acceptance test's SLO bounds; submitted, fetched,
+    population peak and staleness histogram equal across the four; fold
+    launches = implied on the in-process topologies; the single run equal
+    to the port's CPU run in every field but timings, params within 1e-5.
+    Returns (counts, routes)."""
+    from repro_torch.scenario import diurnal_churn, run_scenario
+
+    make = lambda: diurnal_churn(DIURNAL["n_clients"], DIURNAL["n_ticks"],
+                                 seed=DIURNAL["seed"])
+    runs, reps = [], {}
+    for topology, kw in (("single", {}), ("sharded", dict(n_shards=4)),
+                         ("process", dict(n_shards=2)),
+                         ("tcp", dict(hosts=srv.hosts))):
+        rep, counts, routes, wall, folds = scenario_run(
+            make(), dev, topology=topology, **kw)
+        print_scenario(rep, counts, wall, f"diurnal_churn {topology}")
+        rep.assert_slo(**DIURNAL_SLO)
+        require(rep.population_peak == DIURNAL["n_clients"]
+                and rep.slo["staleness_p95"] > 0,
+                f"diurnal {topology}: peak {rep.population_peak}")
+        if topology in ("single", "sharded"):
+            implied = implied_launches(folds)
+            require(counts["fedavg_agg"] == implied, f"diurnal {topology}: "
+                    f"{counts['fedavg_agg']} fold launches, the drain "
+                    f"batches imply {implied}")
+        else:
+            require(rep.stats["respawns"] == 0, f"diurnal {topology}: "
+                                                "respawns")
+        runs.append((counts, routes))
+        reps[topology] = rep
+    first = reps["single"]
+    for topology, rep in reps.items():
+        for f in ("submitted", "fetched", "population_peak"):
+            require(getattr(rep, f) == getattr(first, f),
+                    f"diurnal {topology}: {f} differs from single's")
+        require(rep.metrics["histograms"]["staleness_at_fold"]
+                == first.metrics["histograms"]["staleness_at_fold"],
+                f"diurnal {topology}: staleness histogram differs")
+    t0 = time.perf_counter()
+    cpu = run_scenario(make(), topology="single", device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    gap, top = final_gap(first, cpu)
+    print(f"[scenario] diurnal_churn: submitted, fetched, population peak "
+          f"and staleness histogram equal on the four topologies; single "
+          f"on the card against the CPU ({cpu_wall:.2f} s): fields "
+          f"{'equal' if report_fields(first) == report_fields(cpu) else 'DIFFER'}"
+          f", final params max abs diff {gap:.3e}; card: {card_line()}")
+    require(report_fields(first) == report_fields(cpu),
+            "diurnal: the card's single run differs from the CPU's")
+    require(gap <= 1e-5, f"diurnal: params differ from the CPU's by {gap}")
+    return sum_counts(*runs)
+
+
+def scenario_drift(dev):
+    """``drift_ewc(5_000, 32, period=32, seed=13)`` at the forecaster's
+    width (141,953), lambda 25 and 0, single and sharded, the four on four
+    threads: ``ewc_update`` launches = the runs' kernel calls > 0, fold
+    launches = implied, penalty > 0, the season boundary crossed, each
+    EWC run nearer its season-A anchors than its lambda 0 run; then lambda
+    25 at width 1,024 on the card against the CPU: every field but
+    timings equal, params within 1e-5 x max(1, max|p|).  Returns (counts,
+    routes)."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.scenario import drift_ewc, run_scenario
+
+    def make(lam, dim):
+        return drift_ewc(DRIFT["n_clients"], DRIFT["n_ticks"],
+                         period=DRIFT["period"], seed=DRIFT["seed"],
+                         ewc_lambda=lam, param_dim=dim)
+
+    jobs = [(topo, lam) for topo in ("single", "sharded")
+            for lam in (DRIFT_LAMBDA, 0.0)]
+    reps, walls, errors = {}, {}, []
+
+    def job(topo, lam):
+        try:
+            t0 = time.perf_counter()
+            reps[topo, lam] = run_scenario(make(lam, SOLAR_PARAMS),
+                                           topology=topo, device=dev)
+            walls[topo, lam] = time.perf_counter() - t0
+        except BaseException as e:       # raised below, on this thread
+            errors.append(e)
+
+    with recording_folds(16) as folds:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=job, args=j) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    if errors:
+        raise errors[0]
+    routes = route_counts({})
+    calls = sum(r.ewc["kernel_calls"] for r in reps.values())
+    implied = implied_launches(folds)
+    for (topo, lam), rep in reps.items():
+        print_scenario(rep, None, walls[topo, lam], f"drift_ewc {topo} "
+                       f"lambda {lam} at {SOLAR_PARAMS} (one of four "
+                       "threads)")
+        print(f"[scenario] drift_ewc {topo} lambda {lam}: kernel calls "
+              f"{rep.ewc['kernel_calls']}, penalty_last "
+              f"{rep.ewc['penalty_last']}, season {rep.ewc['season']}")
+        rep.assert_slo(lost_updates=0, effective_round_regressions=0,
+                       drain_timeouts=0)
+    print(f"[scenario] drift_ewc at {SOLAR_PARAMS}, four runs on four "
+          f"threads: {wall:.2f} s; ewc_update launches "
+          f"{counts['ewc_update']} = kernel calls {calls}; fold launches "
+          f"{counts['fedavg_agg']}, implied {implied}; card: {card_line()}")
+    require(calls > 0 and counts["ewc_update"] == calls,
+            f"drift: {counts['ewc_update']} ewc_update launches for {calls} "
+            "kernel calls")
+    require(counts["fedavg_agg"] == implied, f"drift: "
+            f"{counts['fedavg_agg']} fold launches, implied {implied}")
+    for topo in ("single", "sharded"):
+        ewc, base = reps[topo, DRIFT_LAMBDA], reps[topo, 0.0]
+        require(ewc.ewc["penalty_last"] > 0.0 and ewc.ewc["season"] == 1
+                and base.ewc["kernel_calls"] == 0,
+                f"drift {topo}: penalty {ewc.ewc['penalty_last']}, season "
+                f"{ewc.ewc['season']}")
+        d_ewc = sum(float(np.linalg.norm(ewc.ewc["final_params"][k] - a))
+                    for k, a in ewc.ewc["anchors"].items())
+        d_base = sum(float(np.linalg.norm(base.ewc["final_params"][k] - a))
+                     for k, a in ewc.ewc["anchors"].items())
+        print(f"[scenario] drift {topo}: distance to the season-A anchors "
+              f"with EWC {d_ewc:.4f}, without {d_base:.4f}")
+        require(d_ewc < d_base, f"drift {topo}: the EWC run ends farther "
+                                f"from its anchors ({d_ewc} >= {d_base})")
+    runs = [(counts, routes)]
+    for topo in ("single", "sharded"):
+        rep, c, r, w, _ = scenario_run(make(DRIFT_LAMBDA, DRIFT_AGREE_DIM),
+                                       dev, topology=topo)
+        runs.append((c, r))
+        cpu = run_scenario(make(DRIFT_LAMBDA, DRIFT_AGREE_DIM),
+                           topology=topo, device="cpu")
+        gap, top = final_gap(rep, cpu)
+        same = report_fields(rep) == report_fields(cpu)
+        print(f"[scenario] drift_ewc {topo} lambda {DRIFT_LAMBDA} at "
+              f"{DRIFT_AGREE_DIM}, card ({w:.2f} s) against the CPU: fields "
+              f"{'equal' if same else 'DIFFER'}, final params and anchors "
+              f"max abs diff {gap:.3e} (limit {1e-5 * max(1.0, top):.3e}); "
+              f"ewc_update launches {c['ewc_update']} = kernel calls "
+              f"{rep.ewc['kernel_calls']}")
+        require(same, f"drift {topo}: the card's run differs from the CPU's")
+        require(c["ewc_update"] == rep.ewc["kernel_calls"],
+                f"drift {topo} at {DRIFT_AGREE_DIM}: launches")
+        require(gap <= 1e-5 * max(1.0, top), f"drift {topo}: params differ "
+                                              f"from the CPU's by {gap}")
+    return sum_counts(*runs)
+
+
+def scenario_dp(dev):
+    """The flash crowd with ``dp_noise_multiplier`` 1.2: epsilon equal to
+    the CPU run's, exactly.  Returns (counts, routes)."""
+    from repro_torch.scenario import flash_crowd_burst, run_scenario
+
+    make = lambda: flash_crowd_burst(
+        FLASH_DP["n_clients"], FLASH_DP["n_ticks"],
+        n_clusters=FLASH_DP["n_clusters"], seed=FLASH_DP["seed"],
+        dp_noise_multiplier=FLASH_DP["dp_noise_multiplier"])
+    rep, counts, routes, wall, _ = scenario_run(make(), dev,
+                                                topology="single")
+    print_scenario(rep, counts, wall, "flash_crowd DP 1.2 single")
+    cpu = run_scenario(make(), topology="single", device="cpu")
+    print(f"[scenario] flash_crowd DP: epsilon {rep.slo['epsilon']!r} on "
+          f"the card, {cpu.slo['epsilon']!r} on the CPU")
+    require(rep.slo["epsilon"] is not None and rep.slo["epsilon"] > 0
+            and rep.slo["epsilon"] == cpu.slo["epsilon"],
+            "flash crowd DP: epsilon differs from the CPU's")
+    rep.assert_slo(lost_updates=0, epsilon=50.0)
+    return counts, routes
+
+
+def phase_scenario(dev, srv) -> tuple[dict, dict]:
+    """The scenario engine on the card: the acceptance run on every
+    topology, the drift preset at the forecaster's width, a DP flash
+    crowd.  Returns the launches and routes of its runs summed (counters
+    set to 0 before each)."""
+    counts, routes = sum_counts(scenario_diurnal(dev, srv),
+                                scenario_drift(dev), scenario_dp(dev))
+    for name in ("fedavg_agg", "ewc_update"):
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                                  "scenario path")
+    return counts, routes
+
+
+def phase_telemetry_scenario(dev) -> tuple[dict, tuple]:
+    """Phases 9 and 10 around two ``--device cuda`` subprocess shard
+    servers they share.  Returns ({path: (counts, routes)}, the hidden-16
+    sim's (stats, histograms) for ``check_telemetry_cpu``)."""
+    from repro_torch.core.transport import LoopbackShardServers
+
+    before = compute_apps()
+    with LoopbackShardServers(2, device=str(dev)) as srv:
+        require_on_card(srv.pids, before, "subprocess shard servers")
+        tel_counts, tel_routes, want = phase_telemetry(dev, srv)
+        out = {"telemetry": (tel_counts, tel_routes),
+               "scenario": phase_scenario(dev, srv)}
+    return out, want
+
+
+# ----------------------------------------------------------------- phase 11
 def llm_model(arch, dev, dtype=None, depth=None, generator=None):
     """(cfg, model, params) of ``arch`` at full width, weights random from
     the seed: drawn on the card (a CUDA generator) unless ``generator``."""
@@ -2792,7 +3572,7 @@ def phase_llm_agree(dev):
         torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 10
+# ----------------------------------------------------------------- phase 12
 def table_gap(a, b, same_nan=True) -> float:
     """Largest Table II / §IV.E gap in pp over the entries that are NaN in
     neither run; with ``same_nan`` NaN must sit in the same places."""
@@ -2986,7 +3766,7 @@ def check_threaded_secure(dev, init):
                              f"{gap} pp")
 
 
-# ------------------------------------------------------------------ phase 11
+# ----------------------------------------------------------------- phase 13
 def phase_example():
     """``examples/solar_forecasting_torch.py`` as a user runs it, on the
     card: it must exit 0, print Table II and write a report whose Table II
@@ -3037,6 +3817,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    child = None
     try:
         phase_build()
         results = phase_kernels(dev)
@@ -3050,15 +3831,26 @@ def main() -> int:
         phase_profile(dev)
         counts["privacy"], routes["privacy"] = phase_privacy(dev)
         counts["threaded"], routes["threaded"], idle = phase_threaded(dev)
-        counts["sharded"], routes["sharded"] = phase_sharded(dev, idle)
+        # the CPU halves of two checks run in a child beside phases 7-13
+        child = CpuChild()
+        counts["sharded"], routes["sharded"], card16 = \
+            phase_sharded(dev, idle)
         counts["process"], routes["process"] = phase_process(dev)
+        paths, telemetry16 = phase_telemetry_scenario(dev)
+        for path, (c, r) in paths.items():
+            counts[path], routes[path] = c, r
         counts["llm"] = phase_llm(dev)
         phase_agree(dev)
         phase_llm_agree(dev)
         phase_example()
+        check_sharded_cpu(card16, child.result("sharded"))
+        check_telemetry_cpu(child.result("telemetry"), *telemetry16)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if child is not None:
+            child.close()
     # launches: each path's run, counters set to 0 just before it
     main_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")

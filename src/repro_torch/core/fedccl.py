@@ -16,8 +16,9 @@ deterministic sim runtime or the threaded one, with the privacy layer (DP
 privatization, pairwise-mask secure aggregation, RDP accounting;
 ``repro_torch.privacy``) and the read tier (``fetch_from_workers``:
 conditional fetches served by the shard servers; ``repro_torch.core.
-fetch``).  The reference's telemetry layer arrives with a later slice (see
-ROADMAP.md); asking for it raises ``NotImplementedError``.
+fetch``) and telemetry (``telemetry=True``: spans, histograms and trace
+chains across the parent and every worker, read by ``metrics_report`` and
+``write_trace``; ``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ from repro_torch.core.store import (
     ProcessShardedModelStore,
     ShardedModelStore,
 )
+from repro_torch.obs.export import (
+    metrics_json,
+    prometheus_text,
+    write_perfetto,
+)
+from repro_torch.obs.record import Telemetry
 from repro_torch.privacy.accountant import RDPAccountant
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
 from repro_torch.privacy.secure_agg import PairwiseMasker
@@ -106,26 +113,22 @@ class FedCCLConfig:
     # order of n_samples * dp_clip to actually hide the weighted deltas —
     # see the magnitude caveat in repro_torch.privacy.secure_agg
     secure_mask_scale: float = 1.0
-    # ---- later slices: setting any of these raises NotImplementedError
+    # ---- telemetry (repro_torch.obs)
+    # True wires a Telemetry sink through the store, its workers and the
+    # fetch client: submit, enqueue and fold spans in per-thread rings and
+    # log-bucketed latency, queue-depth and staleness histograms, read by
+    # FedCCL.metrics_report() and write_trace().  Off: the stores hold None
+    # and the hot paths pay one attribute check.  Telemetry changes no
+    # result.
     telemetry: bool = False
-
-
-# (what was asked for, is it set, the entry of ROADMAP.md's module queue
-# that brings it, by its title)
-_LATER_SLICES = (
-    ("telemetry", lambda c: c.telemetry, "Telemetry"),
-)
+    # trace-sample every Nth submit (1: every submit gets a span chain
+    # across processes); metrics and events are always recorded
+    trace_sample_n: int = 1
 
 
 class FedCCL:
     def __init__(self, cfg: FedCCLConfig, init_params, train_fn, *,
                  device=None):
-        for what, is_set, slice_name in _LATER_SLICES:
-            if is_set(cfg):
-                raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet; it arrives "
-                    f"with the entry \"{slice_name}\" of ROADMAP.md's "
-                    "module queue")
         if cfg.runtime not in ("sim", "threaded"):
             raise ValueError(f"unknown runtime {cfg.runtime!r}")
         self.cfg = cfg
@@ -139,6 +142,8 @@ class FedCCL:
                        if cfg.secure_agg else None)
         self.accountant = (RDPAccountant(target_delta=cfg.target_delta)
                            if cfg.dp_clip is not None else None)
+        tel = (Telemetry(sample_n=cfg.trace_sample_n)
+               if cfg.telemetry else None)
         if cfg.server_hosts:
             self.store = ProcessShardedModelStore(
                 init_params, server_hosts=list(cfg.server_hosts),
@@ -146,7 +151,8 @@ class FedCCL:
                 max_coalesce=cfg.max_coalesce, masker=self.masker,
                 drain_timeout_s=cfg.drain_timeout_s,
                 mirror_sync_every=cfg.mirror_sync_every,
-                ring_vnodes=cfg.ring_vnodes, device=self.device)
+                ring_vnodes=cfg.ring_vnodes, device=self.device,
+                telemetry=tel)
         elif cfg.server_processes > 0:
             self.store = ProcessShardedModelStore(
                 init_params, n_shards=cfg.server_processes,
@@ -155,19 +161,20 @@ class FedCCL:
                 drain_timeout_s=cfg.drain_timeout_s,
                 mirror_sync_every=cfg.mirror_sync_every,
                 ring_vnodes=cfg.ring_vnodes,
-                inprocess=(cfg.runtime == "sim"), device=self.device)
+                inprocess=(cfg.runtime == "sim"), device=self.device,
+                telemetry=tel)
         elif cfg.server_shards > 0:
             self.store = ShardedModelStore(
                 init_params, n_shards=cfg.server_shards,
                 batch_aggregation=cfg.batch_aggregation,
                 max_coalesce=cfg.max_coalesce, masker=self.masker,
                 drain_timeout_s=cfg.drain_timeout_s,
-                ring_vnodes=cfg.ring_vnodes)
+                ring_vnodes=cfg.ring_vnodes, telemetry=tel)
         else:
             self.store = ModelStore(
                 init_params, batch_aggregation=cfg.batch_aggregation,
                 max_coalesce=cfg.max_coalesce, masker=self.masker,
-                drain_timeout_s=cfg.drain_timeout_s)
+                drain_timeout_s=cfg.drain_timeout_s, telemetry=tel)
         self.spaces = [
             ClusterSpace(s.name, IncrementalDBSCAN(s.eps, s.min_samples, s.metric))
             for s in cfg.spaces]
@@ -178,7 +185,8 @@ class FedCCL:
         self._runtime = None
         # read tier: worker-served where the store has TCP endpoints,
         # parent-served (with the conditional wire cache) otherwise
-        self.fetcher = (FetchClient(self.store, device=self.device)
+        self.fetcher = (FetchClient(self.store, device=self.device,
+                                    telemetry=tel)
                         if cfg.fetch_from_workers else None)
 
     def _make_privatizer(self, client_id: str, index: int):
@@ -303,6 +311,31 @@ class FedCCL:
             report["per_client"] = self.accountant.client_report()
             report["per_model"] = self.accountant.model_report()
         return report
+
+    # ------------------------------------------------------------- telemetry
+    def metrics_report(self, fmt: str = "json"):
+        """Telemetry merged across sites (``FedCCLConfig.telemetry=True``):
+        the parent and every worker, pulled over the wire by ``obsdump``.
+
+        ``fmt="json"`` returns a dict of counters, gauges and p50, p95, p99,
+        mean and max per histogram (``submit_latency_ns``,
+        ``drain_fold_ns_host`` or ``drain_fold_ns_cuda``, ``queue_depth``,
+        ``staleness_at_fold``, ...); ``fmt="prometheus"`` the text
+        exposition page of a scrape endpoint."""
+        dump = self.store.telemetry_dump()
+        if fmt == "prometheus":
+            return prometheus_text(dump)
+        if fmt != "json":
+            raise ValueError(f"unknown metrics format {fmt!r} "
+                             "(expected 'json' or 'prometheus')")
+        return metrics_json(dump)
+
+    def write_trace(self, path) -> None:
+        """Write the run's spans as Chrome trace-event JSON, loadable in
+        Perfetto or chrome://tracing: one process per telemetry site, flow
+        arrows along each sampled submit's chain across the parent and its
+        workers."""
+        write_perfetto(self.store.telemetry_dump(), path)
 
     # ------------------------------------------------------------- inference
     def _serve_params(self, level: str, key: str | None = None):

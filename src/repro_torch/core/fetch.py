@@ -38,6 +38,8 @@ import numpy as np
 from repro_torch.checkpoint.msgpack_ckpt import packb, unpackb, unpackb_np
 from repro_torch.core.aggregation import ModelMeta
 from repro_torch.core.transport import KIND_COMMAND, pack_frame, recv_frame
+from repro_torch.obs import clock
+from repro_torch.obs.record import current_trace
 from repro_torch.utils.device import resolve_device
 
 # result kinds carried in the ``fetched`` reply (payload discriminators,
@@ -165,7 +167,8 @@ class _ReadConn:
     def rpc(self, msg) -> tuple[list, int, int]:
         """Returns ``(reply, tx_bytes, rx_bytes)``; replies hold no arrays
         (the snapshot rides as msgpack bytes)."""
-        frame = pack_frame(packb(msg), KIND_COMMAND)
+        frame = pack_frame(packb(msg), KIND_COMMAND,
+                           trace_ctx=current_trace())
         with self.lock:
             self.sock.sendall(frame)
             _kind, payload, _trace = recv_frame(self.sock)
@@ -199,12 +202,18 @@ class FetchClient:
     finds the epoch moved (a cluster migrated) refreshes the map first,
     and a ``redirect`` reply from a migrated-away owner triggers the same
     refresh and one retry.
+
+    ``telemetry`` (a ``repro_torch.obs.record.Telemetry``, usually the
+    store's) counts fetches by kind (``fetch_full``, ``fetch_not_modified``,
+    ``fetch_delta``) and records ``fetch_latency_ns`` and
+    ``fetch_delta_bytes``; a sampled fetch's trace context rides its frame.
     """
 
     def __init__(self, store, *, device=None, use_workers: bool | None = None,
-                 conditional: bool = True, endpoints=None,
+                 conditional: bool = True, endpoints=None, telemetry=None,
                  connect_timeout: float = 5.0, io_timeout: float = 30.0):
         self.store = store
+        self._tel = telemetry
         self.device = resolve_device(device)
         if endpoints is None:
             eps = getattr(store, "fetch_endpoints", None)
@@ -334,6 +343,7 @@ class FetchClient:
         with self._lock:
             h = self._held.get(key)
         held = list(h[0]) if (self.conditional and h is not None) else None
+        t0 = clock.monotonic_ns()
         kind = payload = meta_w = None
         if self.use_workers and key != self._global_key:
             try:
@@ -348,7 +358,18 @@ class FetchClient:
             self._held[key] = (tuple(int(v) for v in meta_w), packed,
                                params, meta)
             self.counts[("full", "not_modified", "delta")[kind]] += 1
+        self._observe(kind, payload, clock.monotonic_ns() - t0)
         return params, meta
+
+    def _observe(self, kind, payload, dur_ns):
+        tel = self._tel
+        if tel is None:
+            return
+        tel.metrics.counter(
+            f"fetch_{('full', 'not_modified', 'delta')[kind]}").inc()
+        tel.metrics.histogram("fetch_latency_ns").observe(dur_ns)
+        if kind == FETCH_DELTA:
+            tel.metrics.histogram("fetch_delta_bytes").observe(len(payload))
 
     def _decode(self, key, kind, payload, meta_w, h):
         if kind == FETCH_NOT_MODIFIED:

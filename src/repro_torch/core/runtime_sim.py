@@ -24,6 +24,7 @@ import numpy as np
 
 from repro_torch.core.protocol import Client
 from repro_torch.core.store import ModelStore
+from repro_torch.obs import clock
 
 
 @dataclass(order=True)
@@ -121,6 +122,12 @@ class AsyncSimRuntime:
                     if batched and (self.store.pending_depth(level, key)
                                     >= self.store.max_coalesce):
                         self.store.drain(level, key)
+                tel = getattr(self.store, "telemetry", None)
+                if tel is not None:
+                    # an instant marker (sim time is virtual): one event a
+                    # completed client round on the host clock's timeline
+                    tel.event("client.round", clock.monotonic_ns(), 0,
+                              args={"client": client.spec.client_id})
                 self.completed_rounds[client.spec.client_id] += 1
                 if self.completed_rounds[client.spec.client_id] < target:
                     self._push(self.now + 1e-3, "round_start", ev.client_idx)

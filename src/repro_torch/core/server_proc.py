@@ -49,7 +49,6 @@ from __future__ import annotations
 import multiprocessing as mp
 import queue as _queue
 import threading
-import time
 from collections import deque
 
 import torch
@@ -70,6 +69,8 @@ from repro_torch.core.transport import (
     WorkerTimeout,
     WorkerUnavailable,
 )
+from repro_torch.obs import clock
+from repro_torch.obs.record import Telemetry, current_trace, trace_scope
 from repro_torch.utils.device import resolve_device
 
 # commands that produce exactly one reply; everything else is fire-and-forget
@@ -94,6 +95,29 @@ def delta_to_wire(delta) -> list:
 
 def delta_from_wire(w) -> UpdateDelta:
     return UpdateDelta(int(w[0]), int(w[1]), int(w[2]))
+
+
+def observe_fold(tel, route: str, t0: int, base_round: int, items,
+                 name: str = "fold", args: dict | None = None) -> None:
+    """Record one fold of ``items`` (``(meta, delta)`` pairs in arrival
+    order) that started at ``t0``: its host time, its batch size and each
+    update's telescoped staleness.
+
+    ``ModelMeta.accumulate`` advances ``round`` additively by each delta's
+    rounds, so measuring every update against base + the rounds folded
+    before it does not depend on where drains cut the queue: the histogram
+    is the same on every topology's drains of one FIFO schedule.  On a card
+    the fold launches asynchronously, so the duration is the host time of
+    the call, not the device's work."""
+    dur = clock.monotonic_ns() - t0
+    tel.metrics.histogram(f"drain_fold_ns_{route}").observe(dur)
+    tel.metrics.histogram("coalesce_batch").observe(len(items))
+    stale = tel.metrics.histogram("staleness_at_fold")
+    cum = 0
+    for m, d in items:
+        stale.observe(max(0, base_round + cum - m.round))
+        cum += d.rounds
+    tel.event(name, t0, dur, current_trace(), args)
 
 
 def make_seed_blob(shard_records, max_coalesce: int, agg_cfg,
@@ -138,10 +162,12 @@ class ShardWorker:
     swapped by one reference assignment after every fold, and the locked
     wire cache.
 
-    The seed blob's ``use_pallas`` flag is read and ignored, and its
-    telemetry config too: this worker records no telemetry and answers
-    ``obsdump`` with ``None``, as the reference's worker does with
-    telemetry off.
+    The seed blob's ``use_pallas`` flag is read and ignored: the device
+    decides the fold's route.  Its telemetry config (``None``: off, else
+    ``{"sample_n": N}``) gives the worker a ``Telemetry`` of its own, site
+    ``shard-{idx}``, whose dump answers ``obsdump`` (``None`` when off).
+    The fold histogram is ``drain_fold_ns_cuda`` on a card and
+    ``drain_fold_ns_host`` elsewhere.
     """
 
     def __init__(self, shard_idx: int, seed_blob: bytes, device=None):
@@ -158,6 +184,11 @@ class ShardWorker:
 
             seed, scale = blob["masker"]
             self.masker = PairwiseMasker(seed=seed, mask_scale=scale)
+        tcfg = blob.get("telemetry")
+        self.tel = (Telemetry(sample_n=int(tcfg.get("sample_n", 1)),
+                              site=f"shard-{shard_idx}")
+                    if tcfg else None)
+        self._route = "cuda" if self.device.type == "cuda" else "host"
         # key -> {"params", "meta", "pending": deque[(seq, p, m, d)],
         #         "secure": {round_id: [(seq, client_id, masked, delta)]},
         #         "unsynced": [seqs folded but not yet shipped with params],
@@ -211,6 +242,8 @@ class ShardWorker:
         """Hold a submit that raced a migration fence, re-serialized so a
         replay or redirect re-delivers the same bytes."""
         self.parked.append((key, packb(msg)))
+        if self.tel is not None:
+            self.tel.metrics.counter("parked_submits").inc()
         return None
 
     # --------------------------------------------------------------- dispatch
@@ -311,7 +344,10 @@ class ShardWorker:
                             meta_to_wire(rec["meta"])])
             return ["synced", out]
         if op == "obsdump":
-            return ["obsdumped", None]
+            # the worker's metrics and event rings, with the wall-clock
+            # anchor that puts this site on the parent's timeline
+            return ["obsdumped",
+                    self.tel.dump() if self.tel is not None else None]
         if op == "ping":
             return ["pong", self.idx, sorted(self.records)]
         raise ValueError(f"unknown worker op {op!r}")
@@ -328,8 +364,18 @@ class ShardWorker:
         if snap is None:
             raise KeyError(f"shard {self.idx} does not serve {key!r}")
         params, meta_w = snap
+        tel = self.tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         kind, payload = serve_fetch(self.wire_cache, key, params, meta_w,
                                     held)
+        if tel is not None:
+            name = ("full", "not_modified", "delta")[kind]
+            tel.metrics.counter(f"fetch_{name}").inc()
+            tel.metrics.histogram("fetch_serve_ns").observe(
+                clock.monotonic_ns() - t0)
+            if payload is not None:
+                tel.metrics.histogram("fetch_reply_bytes").observe(
+                    len(payload))
         return ["fetched", key, kind, payload, meta_w]
 
     def _mirror(self, key: str, params, meta_w):
@@ -431,11 +477,13 @@ class ShardWorker:
         if mig is not None:
             return ["redirect", key, mig[0], mig[1]]
         rec = self.records[key]
+        tel = self.tel
         folded = fast = batches = 0
         acked: list[int] = []
         while rec["pending"]:
             take = min(len(rec["pending"]), self.max_coalesce)
             batch = [rec["pending"].popleft() for _ in range(take)]
+            t0 = clock.monotonic_ns() if tel is not None else 0
             try:
                 res = coalesced_aggregate(
                     rec["params"], rec["meta"],
@@ -443,6 +491,12 @@ class ShardWorker:
             except Exception as e:
                 rec["pending"].extendleft(reversed(batch))
                 return ["error", key, f"{type(e).__name__}: {e}"]
+            if tel is not None:
+                observe_fold(tel, self._route, t0, rec["meta"].round,
+                             [(m, d) for _, _, m, d in batch],
+                             name="worker.fold",
+                             args={"key": key, "n": len(batch),
+                                   "seqs": [int(s) for s, _, _, _ in batch]})
             rec["params"], rec["meta"] = res.params, res.meta
             self._publish(rec)
             folded += res.n_folded
@@ -457,6 +511,10 @@ class ShardWorker:
         if self.sync_every > 1 and rec["drains"] < self.sync_every:
             return ["drained", key, folded, fast, batches, acked,
                     None, meta_to_wire(rec["meta"])]
+        if tel is not None:
+            # mirror-sync age: the drain replies this params-carrying one
+            # accumulated (1 = eager sync, about sync_every when lazy)
+            tel.metrics.histogram("mirror_sync_lag").observe(rec["drains"])
         full_acked, rec["unsynced"], rec["drains"] = rec["unsynced"], [], 0
         return ["drained", key, folded, fast, batches, full_acked,
                 rec["params"], meta_to_wire(rec["meta"])]
@@ -504,6 +562,7 @@ class ShardWorker:
         batch = rec["secure"].pop(round_id, [])
         if not batch:
             return ["sdrained", key, 0, 0, [], None, None]
+        t0 = clock.monotonic_ns() if self.tel is not None else 0
         try:
             submitted = {cid for _, cid, _, _ in batch}
             missing = sorted(set(expected_ids) - submitted)
@@ -522,6 +581,12 @@ class ShardWorker:
         except Exception as e:
             rec["secure"][round_id] = batch + rec["secure"].get(round_id, [])
             return ["error", key, f"{type(e).__name__}: {e}"]
+        if self.tel is not None:
+            dur = clock.monotonic_ns() - t0
+            self.tel.metrics.histogram("secure_round_ns").observe(dur)
+            self.tel.event("worker.secure_fold", t0, dur, current_trace(),
+                           {"key": key, "n": len(batch),
+                            "missing": len(missing)})
         rec["params"], rec["meta"] = res.params, res.meta
         self._publish(rec)
         self.held.difference_update(int(s) for s, _, _, _ in batch)
@@ -548,21 +613,24 @@ def load_kernels(device) -> None:
 def worker_main(shard_idx: int, cmd_q, rsp_q, seed_blob: bytes, device):
     """Spawned shard-server entry point.  Announces ``["ready", idx]`` once
     the worker is built on its device (CUDA context and kernel library
-    loaded), then decodes, dispatches and replies.  Errors of
-    fire-and-forget commands become the error reply of the next replying
-    command (replies pair positionally)."""
+    loaded), then decodes, dispatches and replies.  Each command arrives as
+    ``(trace_ctx, raw)``: the sender's trace context, restored around the
+    dispatch as a TCP server restores a frame's.  Errors of fire-and-forget
+    commands become the error reply of the next replying command (replies
+    pair positionally)."""
     load_kernels(device)
     worker = ShardWorker(shard_idx, seed_blob, device)
     rsp_q.put(packb(["ready", shard_idx]))
     while True:
-        raw = cmd_q.get()
+        trace, raw = cmd_q.get()
         msg = worker.decode(raw)
         op = msg[0]
         if op == "stop":
             rsp_q.put(packb(["stopped", shard_idx]))
             return
         try:
-            reply = worker.handle(msg)
+            with trace_scope(trace):
+                reply = worker.handle(msg)
         except Exception as e:
             reply = ["error", op, f"{type(e).__name__}: {e}"]
             if op not in REPLY_OPS:
@@ -610,7 +678,7 @@ class ProcessWorkerHandle(Transport):
             target=worker_main,
             args=(self.idx, self.cmd_q, self.rsp_q, seed_blob, self.device),
             daemon=True, name=f"fedccl-shard-{self.idx}")
-        self._t_start = time.monotonic()
+        self._t_start = clock.monotonic()
         self.proc.start()
         self.spawns += 1
         self._ready = False
@@ -626,13 +694,13 @@ class ProcessWorkerHandle(Transport):
         if msg[0] != "ready":
             raise WorkerUnavailable(
                 f"shard worker {self.idx} sent {msg[0]!r} before ready")
-        self.cold_start_s = time.monotonic() - self._t_start
+        self.cold_start_s = clock.monotonic() - self._t_start
         self._ready = True
 
     def _await(self, timeout: float, what: str) -> bytes:
-        deadline = time.monotonic() + timeout
+        deadline = clock.monotonic() + timeout
         while True:
-            remaining = deadline - time.monotonic()
+            remaining = deadline - clock.monotonic()
             try:
                 return self.rsp_q.get(timeout=max(min(remaining, 0.2), 0.01))
             except _queue.Empty:
@@ -648,7 +716,8 @@ class ProcessWorkerHandle(Transport):
     def put(self, raw: bytes):
         with self._send_lock:
             self.tx_bytes += len(raw)
-        self.cmd_q.put(raw)
+        # the trace context rides with the message, as in a TCP frame
+        self.cmd_q.put((current_trace(), raw))
 
     def rpc(self, raw: bytes, timeout: float) -> bytes:
         """Send one replying command and await its reply.  Caller holds

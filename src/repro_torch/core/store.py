@@ -74,8 +74,12 @@ from repro_torch.core.server_proc import (
     delta_to_wire,
     meta_from_wire,
     meta_to_wire,
+    observe_fold,
 )
+from repro_torch.obs import clock
+from repro_torch.obs.record import current_trace, trace_scope
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves
 
 GLOBAL_KEY = "__global__"
 
@@ -212,8 +216,20 @@ class ModelRecord:
         return self._state
 
 
+def fold_route(params) -> str:
+    """The fold histograms' route name (``drain_fold_ns_{route}``):
+    ``cuda`` where a fold of ``params`` runs the ``fedavg_agg`` kernel (its
+    tensors lie on a card), ``host`` where it runs the kernel's plain
+    version.  The reference names its switch's routes ``host`` and
+    ``pallas``; the port has no switch, the device decides."""
+    leaves = tree_leaves(params)
+    return "cuda" if leaves and getattr(leaves[0], "is_cuda", False) \
+        else "host"
+
+
 def _drain_record_once(rec: ModelRecord, max_coalesce: int,
-                       agg_cfg: AggregationConfig):
+                       agg_cfg: AggregationConfig, tel=None,
+                       route: str = "host", key: str = ""):
     """Pop and fold one coalesced batch; returns the CoalesceResult or None.
     Caller holds ``rec.lock``.
 
@@ -230,6 +246,8 @@ def _drain_record_once(rec: ModelRecord, max_coalesce: int,
         rec.inflight_rounds += rounds
     if not batch:
         return None
+    base_round = rec.meta.round
+    t0 = clock.monotonic_ns() if tel is not None else 0
     try:
         res = coalesced_aggregate(rec.params, rec.meta,
                                   [(u.params, u.meta, u.delta)
@@ -243,6 +261,10 @@ def _drain_record_once(rec: ModelRecord, max_coalesce: int,
             rec.pending.extendleft(reversed(batch))
             rec.inflight_rounds -= rounds
         raise
+    if tel is not None:
+        observe_fold(tel, route, t0, base_round,
+                     [(u.meta, u.delta) for u in batch],
+                     args={"key": key, "n": len(batch)})
     with rec.pending_lock:
         rec.swap(res.params, res.meta)
         rec.inflight_rounds -= rounds
@@ -434,9 +456,15 @@ class _StoreBase(_RegistryBase):
     def __init__(self, init_params, cluster_keys=(),
                  agg_cfg: AggregationConfig = AggregationConfig(),
                  batch_aggregation: bool = False, max_coalesce: int = 16,
-                 masker=None, drain_timeout_s: float = 30.0):
+                 masker=None, drain_timeout_s: float = 30.0,
+                 telemetry=None):
         super().__init__(init_params, cluster_keys)
         self.agg_cfg = agg_cfg
+        # telemetry sink (repro_torch.obs.record.Telemetry) or None = off;
+        # the hot paths pay one attribute check when it is off
+        self._tel = telemetry
+        self._route = fold_route(init_params)
+        self._submit_seq = itertools.count()   # trace-sampling counter
         self.batch_aggregation = batch_aggregation
         self.max_coalesce = max(int(max_coalesce), 1)
         # bounded-drain deadline (FedCCLConfig.drain_timeout_s): drain-worker
@@ -530,7 +558,30 @@ class _StoreBase(_RegistryBase):
 
         In batched mode the update is enqueued instead (never blocks, always
         accepted); a later drain folds the whole queue at once.
+
+        With telemetry on, every Nth submit (``sample_n``) mints a trace id
+        held in the thread's trace context for the call: enqueues, inline
+        folds and wire frames downstream read it by ``current_trace()``,
+        which chains one submit's spans across process and TCP boundaries.
         """
+        tel = self._tel
+        if tel is None:
+            return self._handle_update(level, cluster_key, updated_params,
+                                       updated_meta, delta, blocking=blocking)
+        n = next(self._submit_seq)
+        trace = (n + 1) if tel.sampled(n) else 0
+        t0 = clock.monotonic_ns()
+        with trace_scope(trace):
+            ok = self._handle_update(level, cluster_key, updated_params,
+                                     updated_meta, delta, blocking=blocking)
+        dur = clock.monotonic_ns() - t0
+        tel.metrics.histogram("submit_latency_ns").observe(dur)
+        tel.event("submit", t0, dur, trace, {"level": level})
+        return ok
+
+    def _handle_update(self, level: str, cluster_key: str | None,
+                       updated_params, updated_meta: ModelMeta,
+                       delta: UpdateDelta, *, blocking: bool = True) -> bool:
         if self.batch_aggregation:
             self.enqueue_update(level, cluster_key, updated_params,
                                 updated_meta, delta)
@@ -557,10 +608,16 @@ class _StoreBase(_RegistryBase):
         rec = self._record(key)
         st = self._submit_stats(key)
         st.count_enqueue()          # before publish — see _SubmitStats
+        tel = self._tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         with rec.pending_lock:
             rec.pending.append(upd)
             depth = len(rec.pending)
         st.observe_depth(depth)
+        if tel is not None:
+            tel.metrics.histogram("queue_depth").observe(depth)
+            tel.event("enqueue", t0, clock.monotonic_ns() - t0,
+                      current_trace(), {"key": key, "depth": depth})
         return depth
 
     def enqueue_update(self, level: str, cluster_key: str | None,
@@ -583,11 +640,19 @@ class _StoreBase(_RegistryBase):
         ups = updates if isinstance(updates, list) else list(updates)
         if not ups:
             return 0
+        tel = self._tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         if self.batch_aggregation:
-            return self._enqueue_many(level, cluster_key, ups)
-        for p, m, d in ups:
-            self.handle_model_update(level, cluster_key, p, m, d)
-        return 0
+            depth = self._enqueue_many(level, cluster_key, ups)
+        else:
+            for p, m, d in ups:
+                self._handle_update(level, cluster_key, p, m, d)
+            depth = 0
+        if tel is not None:
+            tel.metrics.histogram("submit_batch").observe(len(ups))
+            tel.event("submit_many", t0, clock.monotonic_ns() - t0,
+                      current_trace(), {"level": level, "n": len(ups)})
+        return depth
 
     def _enqueue_many(self, level: str, cluster_key: str | None,
                       ups) -> int:
@@ -608,6 +673,9 @@ class _StoreBase(_RegistryBase):
             rec.pending.extend(pend)
             depth = len(rec.pending)
         st.observe_depth(depth)
+        tel = self._tel
+        if tel is not None:
+            tel.metrics.histogram("queue_depth").observe(depth)
         return depth
 
     def pending_depth(self, level: str, cluster_key: str | None = None) -> int:
@@ -634,7 +702,8 @@ class _StoreBase(_RegistryBase):
             # model lock first so concurrent drains stay FIFO; enqueues only
             # touch pending_lock and keep flowing while we aggregate
             with rec.lock:
-                res = _drain_record_once(rec, self.max_coalesce, self.agg_cfg)
+                res = _drain_record_once(rec, self.max_coalesce, self.agg_cfg,
+                                         self._tel, self._route, key)
             if res is None:
                 return drained
             # `res` is a drain-local CoalesceResult whose field name
@@ -673,11 +742,18 @@ class _StoreBase(_RegistryBase):
         """
         key = self._key(level, cluster_key)
         rec = self._record(key)
+        tel = self._tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         with rec.lock:
             folded, recovered = _drain_secure_record(
                 rec, key, round_id, expected_ids, self.masker, self.agg_cfg)
         if not folded:
             return 0
+        if tel is not None:
+            dur = clock.monotonic_ns() - t0
+            tel.metrics.histogram("secure_round_ns").observe(dur)
+            tel.event("secure_fold", t0, dur, current_trace(),
+                      {"key": key, "n": folded})
         self._count_drain(folded, 0, secure=True, recovered=recovered)
         return folded
 
@@ -695,6 +771,22 @@ class _StoreBase(_RegistryBase):
         it first, as they do for the reference's process stores."""
         return 0
 
+    # ------------------------------------------------------------- telemetry
+    @property
+    def telemetry(self):
+        """The store's ``repro_torch.obs.record.Telemetry`` sink (None =
+        off)."""
+        return self._tel
+
+    def telemetry_dump(self) -> dict:
+        """Multi-site telemetry dump, ``{"sites": [...]}``, the shape every
+        ``repro_torch.obs.export`` exporter reads.  In-thread stores record
+        at one site; the process and TCP store adds one site per worker
+        (the ``obsdump`` wire command)."""
+        if self._tel is None:
+            return {"sites": []}
+        return {"sites": [self._tel.dump()]}
+
 
 class ModelStore(_StoreBase):
     """Thread-safe store for global + cluster models: one submit-side stats
@@ -703,10 +795,11 @@ class ModelStore(_StoreBase):
     def __init__(self, init_params, cluster_keys=(),
                  agg_cfg: AggregationConfig = AggregationConfig(),
                  batch_aggregation: bool = False, max_coalesce: int = 16,
-                 masker=None, drain_timeout_s: float = 30.0):
+                 masker=None, drain_timeout_s: float = 30.0,
+                 telemetry=None):
         super().__init__(init_params, cluster_keys, agg_cfg,
                          batch_aggregation, max_coalesce, masker,
-                         drain_timeout_s)
+                         drain_timeout_s, telemetry)
         self._submit = _SubmitStats()
 
     def _submit_stats(self, key: str) -> _SubmitStats:
@@ -811,11 +904,12 @@ class ShardedModelStore(_StoreBase):
                  agg_cfg: AggregationConfig = AggregationConfig(),
                  n_shards: int = 4, batch_aggregation: bool = False,
                  max_coalesce: int = 16, masker=None,
-                 drain_timeout_s: float = 30.0, ring_vnodes: int = 64):
+                 drain_timeout_s: float = 30.0, ring_vnodes: int = 64,
+                 telemetry=None):
         self.n_shards = max(int(n_shards), 1)
         super().__init__(init_params, cluster_keys, agg_cfg,
                          batch_aggregation, max_coalesce, masker,
-                         drain_timeout_s)
+                         drain_timeout_s, telemetry)
         self.ring = HashRing(self.n_shards, ring_vnodes)
         self.n_cluster_migrations = 0       # under the shared _drain_lock
         self._shards = [_Shard(i) for i in range(self.n_shards)]
@@ -849,10 +943,17 @@ class ShardedModelStore(_StoreBase):
         on its new shard."""
         key = self._key("cluster", cluster_key)
         rec = self._record(key)              # unknown cluster -> KeyError
+        tel = self._tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         with rec.lock:
             epoch = self.ring.assign(key, int(dst_shard))
         with self._drain_lock:
             self.n_cluster_migrations += 1
+        if tel is not None:
+            tel.metrics.counter("cluster_migrations").inc()
+            tel.event("migrate", t0, clock.monotonic_ns() - t0,
+                      current_trace(),
+                      {"key": key, "dst": int(dst_shard), "epoch": epoch})
         return epoch
 
     def shard_cluster_keys(self, shard: int):
@@ -874,10 +975,16 @@ class ShardedModelStore(_StoreBase):
         seq = next(self._gseq)
         sh = self._shards[seq % self.n_shards]
         sh.stats.count_enqueue()    # before publish — see _SubmitStats
+        tel = self._tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         with sh.lock:
             sh.global_pending.append((seq, upd))
             depth = len(sh.global_pending)
         sh.stats.observe_depth(depth)
+        if tel is not None:
+            tel.metrics.histogram("queue_depth").observe(depth)
+            tel.event("enqueue", t0, clock.monotonic_ns() - t0,
+                      current_trace(), {"key": GLOBAL_KEY, "depth": depth})
         return depth
 
     def _enqueue_many(self, level: str, cluster_key: str | None,
@@ -892,6 +999,7 @@ class ShardedModelStore(_StoreBase):
         for p, m, d in ups:
             seq = next(self._gseq)
             per[seq % self.n_shards].append((seq, PendingUpdate(p, m, d)))
+        tel = self._tel
         depth = 0
         for sh, items in zip(self._shards, per, strict=True):
             if not items:
@@ -902,6 +1010,8 @@ class ShardedModelStore(_StoreBase):
                 d2 = len(sh.global_pending)
             sh.stats.observe_depth(d2)
             depth = max(depth, d2)
+            if tel is not None:
+                tel.metrics.histogram("queue_depth").observe(d2)
         return depth
 
     def pending_depth(self, level: str, cluster_key: str | None = None) -> int:
@@ -963,6 +1073,8 @@ class ShardedModelStore(_StoreBase):
                 with rec.pending_lock:
                     rec.inflight_rounds -= total_rounds
                 return 0
+            tel = self._tel
+            t0 = clock.monotonic_ns() if tel is not None else 0
             try:
                 res = two_level_coalesced_aggregate(
                     rec.params, rec.meta, batches, self.agg_cfg,
@@ -977,6 +1089,15 @@ class ShardedModelStore(_StoreBase):
                             sh.global_pending.extendleft(reversed(items))
                     rec.inflight_rounds -= total_rounds
                 raise
+            if tel is not None:
+                # seq order is arrival order, the flat store's FIFO
+                observe_fold(tel, self._route, t0, rec.meta.round,
+                             [(u[1], u[2]) for _, u in sorted(
+                                 ((s, u) for sq, b in zip(seqs, batches,
+                                                          strict=True)
+                                  for s, u in zip(sq, b, strict=True)),
+                                 key=lambda su: su[0])],
+                             args={"key": GLOBAL_KEY, "n": n})
             with rec.pending_lock:
                 rec.swap(res.params, res.meta)
                 rec.inflight_rounds -= total_rounds
@@ -1182,7 +1303,7 @@ class ProcessShardedModelStore(_StoreBase):
                  max_coalesce: int = 16, masker=None,
                  drain_timeout_s: float = 30.0, inprocess: bool = False,
                  server_hosts=None, mirror_sync_every: int = 1,
-                 ring_vnodes: int = 64, device=None):
+                 ring_vnodes: int = 64, device=None, telemetry=None):
         if server_hosts:
             owners, replicas = [], []
             for h in server_hosts:
@@ -1200,8 +1321,10 @@ class ProcessShardedModelStore(_StoreBase):
         self.n_shards = max(int(n_shards), 1)
         super().__init__(init_params, cluster_keys, agg_cfg,
                          batch_aggregation, max_coalesce, masker,
-                         drain_timeout_s)
+                         drain_timeout_s, telemetry)
         self.device = resolve_device(device)
+        # the parent's merge of partials folds on the reply device
+        self._route = "cuda" if self.device.type == "cuda" else "host"
         self.inprocess = bool(inprocess) and self.server_hosts is None
         self.mirror_sync_every = max(int(mirror_sync_every), 1)
         self.ring = HashRing(self.n_shards, ring_vnodes)
@@ -1261,6 +1384,8 @@ class ProcessShardedModelStore(_StoreBase):
             # fedlint: unlocked-ok(copy-on-write registry snapshot read)
             params, meta = self._records[key].snapshot()
             recs.append((key, params, meta))
+        tcfg = ({"sample_n": self._tel.sample_n}
+                if self._tel is not None else None)
         # every worker learns where migrated-away keys live, so a respawned
         # ex-owner keeps answering redirects
         migrated = {key: [dst, ep]
@@ -1268,7 +1393,7 @@ class ProcessShardedModelStore(_StoreBase):
                     if dst != shard_idx}
         return server_proc.make_seed_blob(recs, self.max_coalesce,
                                           self.agg_cfg, self.masker,
-                                          self.mirror_sync_every, None,
+                                          self.mirror_sync_every, tcfg,
                                           # fedlint: unlocked-ok(monotone epoch; seed built under rpc_lock)
                                           epoch=self.ring.epoch,
                                           migrated=migrated)
@@ -1357,9 +1482,9 @@ class ProcessShardedModelStore(_StoreBase):
                 h.put(raw)
 
     # ------------------------------------------------------- submit paths
-    def handle_model_update(self, level: str, cluster_key: str | None,
-                            updated_params, updated_meta: ModelMeta,
-                            delta: UpdateDelta, *, blocking: bool = True) -> bool:
+    def _handle_update(self, level: str, cluster_key: str | None,
+                       updated_params, updated_meta: ModelMeta,
+                       delta: UpdateDelta, *, blocking: bool = True) -> bool:
         """Every update crosses to a worker, so the store queues even
         unbatched: a non-batched config drains right after the enqueue (a
         coalesced fold of one update, Algorithm 2's result)."""
@@ -1374,6 +1499,9 @@ class ProcessShardedModelStore(_StoreBase):
                        delta: UpdateDelta) -> int:
         key = self._key(level, cluster_key)
         seq = next(self._gseq)
+        tel = self._tel
+        trace = current_trace() if tel is not None else 0
+        t0 = clock.monotonic_ns() if tel is not None else 0
         if key == GLOBAL_KEY:
             # global tier: a round-robin worker slice (the two-level fold
             # sorts by seq, so the slice is free)
@@ -1418,6 +1546,16 @@ class ProcessShardedModelStore(_StoreBase):
                     self._outbox_put(sh, raw)
                 break
         sh.stats.observe_depth(depth)
+        if tel is not None:
+            tel.metrics.histogram("queue_depth").observe(depth)
+            args = {"key": key, "depth": depth}
+            if trace:
+                # the wire seq links this submit to the worker's fold event
+                # that consumes it (whose args carry the batch's seqs): the
+                # outbox batches submits, so the frame that ships this one
+                # may carry another call's trace context
+                args["seq"] = seq
+            tel.event("enqueue", t0, clock.monotonic_ns() - t0, trace, args)
         return depth
 
     def _enqueue_many(self, level: str, cluster_key: str | None,
@@ -1680,6 +1818,8 @@ class ProcessShardedModelStore(_StoreBase):
             n = len(flat)
             if n == 0:
                 return 0
+            tel = self._tel
+            t0 = clock.monotonic_ns() if tel is not None else 0
             plan = plan_coalesce(rec.meta, [(m, d) for _, _, m, d in flat],
                                  self.agg_cfg)
             by_shard: dict[int, list] = {k: [] for k in range(self.n_shards)}
@@ -1717,6 +1857,14 @@ class ProcessShardedModelStore(_StoreBase):
             except BaseException:
                 self._abort_global_drain()
                 raise
+            if tel is not None:
+                # the parent observes the global tier alone (the workers'
+                # greduce records nothing), else each update counts twice;
+                # ``flat`` is seq-sorted, the flat store's FIFO
+                observe_fold(tel, self._route, t0, rec.meta.round,
+                             [(m, d) for _, _, m, d in flat], name="merge",
+                             args={"key": GLOBAL_KEY, "n": n,
+                                   "partials": len(partials)})
             with rec.pending_lock:
                 rec.swap(new_params, plan.meta)
                 for sh, sq in zip(self._proc_shards, acked, strict=True):
@@ -1760,8 +1908,13 @@ class ProcessShardedModelStore(_StoreBase):
     def _sync_shard(self, sh: _ProcShard) -> int:
         with self._drain_lock:
             self.n_mirror_syncs += 1
-        return self._rpc(sh, server_proc.packb(["sync"]),
-                         lambda reply: self._apply_synced(sh, reply))
+        tel = self._tel
+        if tel is None:
+            return self._rpc(sh, server_proc.packb(["sync"]),
+                             lambda reply: self._apply_synced(sh, reply))
+        with tel.span("mirror_sync", current_trace(), {"shard": sh.idx}):
+            return self._rpc(sh, server_proc.packb(["sync"]),
+                             lambda reply: self._apply_synced(sh, reply))
 
     def fetch_endpoints(self):
         """Read-tier addresses per shard (replicas first, the owner last),
@@ -1907,10 +2060,23 @@ class ProcessShardedModelStore(_StoreBase):
             return self.ring.epoch           # already owned by dst: no-op
         src, dst = self._proc_shards[src_i], self._proc_shards[dst_i]
         first, second = (src, dst) if src_i < dst_i else (dst, src)
+        tel = self._tel
+        t0 = clock.monotonic_ns() if tel is not None else 0
         with first.rpc_lock, second.rpc_lock:
-            epoch = self._migrate_locked(key, rec, src, dst)
+            if tel is None:
+                epoch = self._migrate_locked(key, rec, src, dst)
+            else:
+                with tel.span("migrate", current_trace(),
+                              {"key": key, "src": src_i, "dst": dst_i}):
+                    epoch = self._migrate_locked(key, rec, src, dst)
         with self._drain_lock:
             self.n_cluster_migrations += 1
+        if tel is not None:
+            tel.metrics.counter("cluster_migrations").inc()
+            tel.event("migrate", t0, clock.monotonic_ns() - t0,
+                      current_trace(),
+                      {"key": key, "src": src_i, "dst": dst_i,
+                       "epoch": epoch})
         return epoch
 
     def _migrate_locked(self, key: str, rec: ModelRecord, src: _ProcShard,
@@ -2015,6 +2181,36 @@ class ProcessShardedModelStore(_StoreBase):
             tx += sum(h.tx_bytes for h in sh.replicas)
             rx += sum(h.rx_bytes for h in sh.replicas)
         return tx, rx
+
+    def telemetry_dump(self) -> dict:
+        """The parent's site plus one per live worker, pulled over the
+        worker transport (``obsdump``).  A worker that cannot reply is
+        skipped: its rings died with it, and a respawned worker's telemetry
+        starts empty (so a journal replay never counts a span twice).  The
+        wire-byte and dirty-mirror gauges are stamped at dump time."""
+        if self._tel is None:
+            return {"sites": []}
+        tx, rx = self.wire_bytes()
+        gauge = self._tel.metrics.gauge
+        gauge("wire_tx_bytes").set(tx)
+        gauge("wire_rx_bytes").set(rx)
+        dirty = 0
+        for sh in self._proc_shards:
+            with sh.journal_lock:
+                dirty += len(sh.dirty)
+        gauge("dirty_mirrors").set(dirty)
+        sites = [self._tel.dump()]
+        if self._closed:
+            return {"sites": sites}
+        raw = server_proc.packb(["obsdump"])
+        for sh in self._proc_shards:
+            try:
+                dump = self._rpc(sh, raw, lambda reply: reply[1])
+            except (RuntimeError, OSError):
+                continue
+            if dump is not None:
+                sites.append(dump)
+        return {"sites": sites}
 
     def agg_stats(self) -> dict:
         tx, rx = self.wire_bytes()

@@ -28,8 +28,8 @@ Frame layout (all integers big-endian):
     3       1     kind       0x00 command (parent->worker),
                              0x01 reply   (worker->parent)
     4       4     length     payload byte length (u32)
-    8       8     trace_ctx  telemetry trace context (u64; the port sends
-                             0, as the reference does with telemetry off)
+    8       8     trace_ctx  telemetry trace context (u64; 0 = untraced):
+                             the sending thread's ``current_trace()``
     16      len   payload    msgpack message
 
 Each (re)connect sends ``["seed", shard_idx, seed_blob]`` and waits for
@@ -52,6 +52,8 @@ import time
 
 from repro_torch.checkpoint.msgpack_ckpt import packb
 from repro_torch.checkpoint.msgpack_ckpt import unpackb_np
+from repro_torch.obs import clock
+from repro_torch.obs.record import current_trace
 
 FRAME_MAGIC = b"FC"
 WIRE_VERSION = 4
@@ -184,7 +186,7 @@ class LoopbackShardServers:
         env = dict(os.environ)
         env["PYTHONPATH"] = self._src + (
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-        t0 = time.monotonic()
+        t0 = clock.monotonic()
         self.procs[i] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.shard_server",
              "--host", "127.0.0.1", "--port", str(port),
@@ -198,7 +200,7 @@ class LoopbackShardServers:
         deadline = t0 + self.startup_timeout
         line = ""
         while True:
-            if time.monotonic() >= deadline:
+            if clock.monotonic() >= deadline:
                 proc.kill()
                 proc.wait(10.0)
                 raise RuntimeError(
@@ -221,7 +223,7 @@ class LoopbackShardServers:
                     f"shard server {i} exited with {proc.returncode} "
                     f"before listening")
         self.ports[i] = int(line.rsplit("port=", 1)[1])
-        self.startup_s[i] = time.monotonic() - t0
+        self.startup_s[i] = clock.monotonic() - t0
 
     @property
     def hosts(self) -> list[str]:
@@ -348,13 +350,13 @@ class TcpWorkerHandle(Transport):
 
     # ------------------------------------------------------------- lifecycle
     def _start(self, seed_blob: bytes):
-        deadline = time.monotonic() + self.connect_timeout
+        deadline = clock.monotonic() + self.connect_timeout
         while True:
             try:
                 sock = socket.create_connection(self.address, timeout=5.0)
                 break
             except OSError as e:
-                if time.monotonic() >= deadline:
+                if clock.monotonic() >= deadline:
                     raise WorkerUnavailable(
                         f"{self._where()} unreachable within "
                         f"{self.connect_timeout:.0f}s: {e}") from e
@@ -402,7 +404,10 @@ class TcpWorkerHandle(Transport):
             if self._broken or sock is None:
                 raise WorkerUnavailable(f"{self._where()} connection is down")
             try:
-                self.tx_bytes += send_frame(sock, raw, KIND_COMMAND)
+                # the thread's trace context (a sampled submit's, or 0)
+                # rides the frame header across the TCP boundary
+                self.tx_bytes += send_frame(sock, raw, KIND_COMMAND,
+                                            current_trace())
             except OSError as e:
                 self._mark_broken()
                 raise WorkerUnavailable(

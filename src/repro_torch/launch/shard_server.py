@@ -45,6 +45,7 @@ from repro_torch.core.transport import (
     recv_frame,
     send_frame,
 )
+from repro_torch.obs.record import trace_scope
 from repro_torch.utils.device import resolve_device
 
 #: ops whose first appearance on a fresh connection opens a concurrent
@@ -87,12 +88,12 @@ def serve_session(state: _ServerState, conn: socket.socket,
     True to keep listening."""
     while True:
         if first is not None:
-            raw, first = first[1], None
+            raw, trace_ctx, first = first[1], first[2], None
         else:
             got = _recv_or_report(conn)
             if got is None:
                 return True                  # parent went away; next session
-            raw = got[1]
+            raw, trace_ctx = got[1], got[2]
         worker = state.worker
         msg = (worker.decode(raw) if worker is not None
                else unpackb_np(raw))
@@ -120,7 +121,10 @@ def serve_session(state: _ServerState, conn: socket.socket,
             send_frame(conn, packb(["stopped", worker.idx]), KIND_REPLY)
             return True
         try:
-            reply = worker.handle(msg)
+            # the frame's trace context, restored around the dispatch: spans
+            # the worker records join the originating submit's chain
+            with trace_scope(trace_ctx):
+                reply = worker.handle(msg)
         except Exception as e:
             reply = ["error", op, f"{type(e).__name__}: {e}"]
             if op not in REPLY_OPS:          # deferred, as in worker_main
@@ -137,12 +141,12 @@ def serve_read_session(state: _ServerState, conn: socket.socket,
     published snapshots (never through ``ShardWorker.handle``)."""
     while True:
         if first is not None:
-            raw, first = first[1], None
+            raw, trace_ctx, first = first[1], first[2], None
         else:
             got = _recv_or_report(conn)
             if got is None:
                 return
-            raw = got[1]
+            raw, trace_ctx = got[1], got[2]
         msg = unpackb_np(raw)
         op = msg[0]
         worker = state.worker
@@ -155,7 +159,9 @@ def serve_read_session(state: _ServerState, conn: socket.socket,
             elif worker is None:
                 reply = ["error", op, "server not seeded yet"]
             elif op == "fetch":
-                reply = worker.fetch(msg[1], msg[2] if len(msg) > 2 else None)
+                with trace_scope(trace_ctx):
+                    reply = worker.fetch(msg[1],
+                                         msg[2] if len(msg) > 2 else None)
             else:                            # ping
                 reply = ["pong", worker.idx, sorted(worker.records)]
         except Exception as e:

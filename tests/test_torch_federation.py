@@ -32,6 +32,7 @@ from repro_torch.core.store import (
 from repro_torch.core.transport import WorkerUnavailable
 from repro_torch.data.solar import generate_fleet
 from repro_torch.data.windows import make_windows, split_windows
+from repro_torch.obs.record import Telemetry
 from repro_torch.models.lstm import SolarForecaster
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
 from repro_torch.privacy.secure_agg import PairwiseMasker
@@ -260,14 +261,17 @@ def test_privacy_report_has_the_reference_shape(privacy):
     {"server_processes": 2}, {"server_hosts": ("localhost:1",)},
     {"fetch_from_workers": True}, {"telemetry": True}])
 def test_later_slices_raise(option):
-    """Telemetry still raises ``NotImplementedError``.  The process, TCP
-    and read tiers are ported: they build their store and fetch client,
-    and a shard server nobody listens for raises the transport's error
-    (after the connect deadline's 10 s of retries)."""
+    """Every option of the later slices is ported: the process, TCP and
+    read tiers build their store and fetch client (a shard server nobody
+    listens for raises the transport's error, after the connect deadline's
+    10 s of retries), and telemetry builds its sink and no longer raises
+    ``NotImplementedError``."""
     if "telemetry" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
-                   device="cpu")
+        fed = FedCCL(FedCCLConfig(**option), {"w": torch.zeros(2)}, None,
+                     device="cpu")
+        assert isinstance(fed.store.telemetry, Telemetry)
+        assert fed.metrics_report("json")["sites"] == ["parent"]
+        fed.shutdown()
         return
     if "server_hosts" in option:
         with pytest.raises(WorkerUnavailable, match="localhost:1"):

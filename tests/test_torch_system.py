@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.solar_lstm import SolarLSTMConfig
 from repro_torch.core.fedccl import FedCCL, FedCCLConfig
 from repro_torch.models.lstm import SolarForecaster
+from repro_torch.scenario import flash_crowd_burst, make_store, run_scenario
 from repro_torch.training.fed_solar import run_fedccl_solar
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -70,18 +71,59 @@ def test_port_imports_neither_jax_nor_the_reference(path):
         assert root not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+CLOCK_READS = {"monotonic", "monotonic_ns", "time", "time_ns",
+               "perf_counter", "perf_counter_ns"}
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_reads_clocks_only_through_obs_clock(path):
+    """As the reference routes every clock read through ``repro.obs.clock``,
+    the port reads clocks only through ``repro_torch.obs.clock``."""
+    if path == PORT / "obs" / "clock.py":
+        return
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in CLOCK_READS \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id == "time":
+            raise AssertionError(f"{path}:{node.lineno}: time.{node.attr}")
+        if isinstance(node, ast.ImportFrom) and node.module == "time":
+            assert not {a.name for a in node.names} & CLOCK_READS, path
+
+
 def test_port_imports_with_jax_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "import repro_torch.training.fed_solar\n"
             "import repro_torch.kernels.build\n"
+            "import repro_torch.obs, repro_torch.scenario\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_obs_needs_no_torch():
+    """The telemetry layer is stdlib-only, like the reference's: it imports
+    with torch blocked too."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'torch', 'numpy'):\n"
+            "    sys.modules[m] = None\n"
+            "import repro_torch.obs\n"
+            "from repro_torch.obs import metrics_json, Telemetry\n"
+            "t = Telemetry()\n"
+            "t.metrics.histogram('x').observe(3)\n"
+            "print(metrics_json({'sites': [t.dump()]})['histograms']['x']"
+            "['count'])\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1"
 
 
 # ------------------------------------------------------------- no fallback
@@ -94,6 +136,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SolarForecaster(SolarLSTMConfig(hidden_size=4)).init(
             torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_scenario(flash_crowd_burst(100, 2, n_clusters=2),
+                     topology="single")
+    for topology in ("single", "sharded", "process"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_store(topology, cluster_keys=["c0"])
 
 
 @pytest.mark.parametrize("alone", [False, True])
