@@ -39,7 +39,13 @@ Phases, each fatal on failure (non-zero exit, no final line):
              kernel (back to back, and its own device time from
              torch.profiler), plain version and library call (cuDNN's
              ``torch.lstm`` for the sequence, forward and forward +
-             backward), and the sequence's serial floor.
+             backward), and the sequence's serial floor; the backward
+             kernels of ssd_chunk (mamba2-370m's training shape b 2, S
+             2048 and the padded S 2000, and SSD_SHAPES) and of local_attn
+             (gemma-2b's training shape in bf16 and f32, the window 2048
+             at S 4096, head dims 80 and 192), each against its plain VJP
+             and the VJP in f64 (BWD_F64_FACTOR) and twice for the bits,
+             timed beside SDPA's forward + backward.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, the
@@ -126,7 +132,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              same staleness histogram, one submit and one enqueue event
              an update, 3 sites for the worker tiers, a submit's trace
              chain reaching a worker's fold); and the flat store stress's
-             submits/s with telemetry on and off.
+             submits/s with telemetry off, on, on and off.
 10. scenario — the scenario engine (``repro_torch.scenario``) on the card:
              ``diurnal_churn(100_000, 24, seed=3)`` on single, sharded,
              process (2 spawned CUDA workers) and tcp (2 ``--device cuda``
@@ -165,13 +171,32 @@ Phases, each fatal on failure (non-zero exit, no final line):
              0): Table II must agree, stats and budgets be equal.
              The LLM path: decode by replay against the kernel forward (f32,
              full width, 4 layers, T 64), and the CUDA loss against the CPU
-             loss from the same weights (f32, full width, 2 layers).
+             loss from the same weights (f32, full width, 2 layers), and
+             the CUDA gradients (one backward launch a layer) against the
+             CPU gradients of the same weights and batch (the CPU half in
+             the child of phase 7), every leaf within LLM_GRAD_RTOL.
 13. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
              subprocess on the card: exit 0, Table II printed and, in its
              ``solar_report.json``, finite and inside the system test's
              bounds.
 
-The script re-executes itself once with ``PYTHONHASHSEED=0``: the solar
+14. train — language-model training at full width and depth in the
+             configs' bf16 (``build_train_step``, AdamW), counters set to 0
+             just before each step and read just after: mamba2-370m and
+             gemma-2b, 3 steps each at B 2 x S 2048 on one
+             ``lm_batch(structure=1.0)``, exactly one forward and one
+             backward launch of ssd_chunk / local_attn a layer (gemma's
+             forwards on the tensor-core route), the loss falling, wall
+             time, tokens/s, peak memory and the device's kernels by name;
+             one anchored step of mamba2 (``ewc=``): one ``ewc_update``
+             launch, its penalty equal to the plain ``ewc_penalty``; and
+             ``examples/federated_llm_torch.py``'s ``federate`` with
+             mamba2-370m at full width (4 organisations, 2 rounds): the
+             eval loss falls, FED_LLM_UPDATES updates, fold launches equal
+             to what the recorded folds imply, the global model moved.
+
+Each phase's wall time is printed as a ``[time]`` line.  The script
+re-executes itself once with ``PYTHONHASHSEED=0``: the solar
 fleet's weather is seeded with ``hash(site_id)`` (``data/solar.py``, as in
 the reference), so a fixed hash seed makes every call run the same data.
 
@@ -235,6 +260,12 @@ KERNEL_META = {
     # dims 16, 32 take csrc/local_attn.cu
     "local_attn": ("src/repro_torch/kernels/csrc/local_attn_tc.cu",
                    "src/repro/kernels/local_attn/local_attn.py:90"),
+    # the training path's gradients of the two LLM kernels (the Pallas
+    # kernels have none; these replace the gradient of the function)
+    "ssd_chunk_bwd": ("src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                      "src/repro/kernels/ssd_chunk/ssd_chunk.py:59"),
+    "local_attn_bwd": ("src/repro_torch/kernels/csrc/local_attn_bwd.cu",
+                       "src/repro/kernels/local_attn/local_attn.py:90"),
 }
 # each wrapper's own CUDA kernels, as torch.profiler names them
 KERNEL_SYMBOLS = {
@@ -246,6 +277,10 @@ KERNEL_SYMBOLS = {
                       "dp_clip_noise_wide_kernel"),
     "ssd_chunk": ("ssd_chunk_tf32_kernel",),
     "local_attn": ("local_attn_tc_kernel", "local_attn_kernel"),
+    "ssd_chunk_bwd": ("ssd_chunk_bwd_kernel", "ssd_chunk_bwd_fold_kernel"),
+    "local_attn_bwd": ("local_attn_bwd_dq_kernel",
+                       "local_attn_bwd_dkdv_kernel",
+                       "local_attn_bwd_fold_kernel"),
 }
 
 # the LLM path: batched scoring (build_eval_step) and greedy serving
@@ -264,6 +299,11 @@ SERVE_DTYPE = "float32"
 LLM_DECODE_DEPTH, LLM_DECODE_T, LLM_DECODE_RTOL = 4, 64, 2e-4
 LLM_AGREE_DEPTH, LLM_AGREE_LOSS = 2, 1e-4
 LLM_AGREE_SEQ = {"mamba2-370m": 520, "gemma-2b": 256}   # 520: 3 SSD chunks
+# examples/federated_llm_torch.py's run (4 organisations, 2 rounds): its
+# update count, which tests/test_torch_train.py finds equal for the same
+# specs and rounds against examples/federated_llm.py (the schedule does not
+# depend on the width)
+FED_LLM_UPDATES = 16
 KERNEL_RTOL = 2e-5      # f32 kernel vs plain at path shapes, x max(1, |plain|)
 # ssd_chunk is also held against the same function in f64: the kernel may
 # sit at most SSD_F64_FACTOR times as far from it as its f32 plain version
@@ -278,6 +318,34 @@ SSD_SHAPES = ((2, 4, 16, 8, 80, 2, 160), (1, 2, 256, 8, 80, 2, 160))
 # most ATTN_F64_FACTOR times as far from the f64 answer as the plain
 # version's bf16 output
 ATTN_F64_FACTOR = 2.0
+# the backward kernels against their plain versions (the explicit VJPs):
+# f32 within BWD_RTOL x max(1, max|plain|) (cuBLAS sums in another order;
+# d(dA) is a reverse cumsum of sums that cancel), bf16 outputs within
+# BWD_BF16_RTOL x max(1, max|plain|); and each output at most
+# BWD_F64_FACTOR times as far from the VJP evaluated in f64 as the plain
+# version's
+BWD_RTOL, BWD_BF16_RTOL, BWD_F64_FACTOR = 1e-4, 2e-2, 2.0
+# local_attn's backward: (B, H, KV, S, D, causal, window, dtype): gemma-2b's
+# training shape in bf16 (the path) and f32, RecurrentGemma's window 2048
+# at S 4096, and head dims 80 and 192 (zero-padded to 128 and 256)
+ATTN_BWD_CASES = ((2, 8, 1, 2048, 256, True, 0, "bfloat16"),
+                  (2, 8, 1, 2048, 256, True, 0, "float32"),
+                  (1, 16, 1, 4096, 256, True, 2048, "float32"),
+                  (1, 16, 16, 1024, 80, False, 0, "float32"),
+                  (1, 16, 16, 1024, 80, False, 0, "bfloat16"),
+                  (1, 16, 16, 1024, 192, True, 0, "bfloat16"))
+# phase 14: training at full width and depth in the configs' bf16, three
+# AdamW steps on one batch each (batch, S); gemma-2b's moments in bf16 (the
+# reference's moment_dtype, for the 80 GB: f32 moments, old and new, would
+# be 40 GB beside 2.5 B parameters and their f32 gradients and updates)
+LLM_TRAIN = {"mamba2-370m": (2, 2048), "gemma-2b": (2, 2048)}
+TRAIN_STEPS, TRAIN_LR = 3, 3e-4
+TRAIN_MOMENTS = {"mamba2-370m": "float32", "gemma-2b": "bfloat16"}
+EWC_LAMBDA = 10.0
+EWC_PENALTY_RTOL = 1e-5
+# phase 12: the CUDA gradients of the depth-2 f32 models against the CPU's
+# (the child's), every leaf within LLM_GRAD_RTOL x max(1, max|g_cpu|)
+LLM_GRAD_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1184,6 +1252,177 @@ def check_local_attn(dev, gen):
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
 
 
+def hold_bwd(tag, names, got, again, plain, exact, rtol) -> float:
+    """A backward kernel's outputs: the same bits on a second run, within
+    ``rtol`` x max(1, max|plain|) of the plain VJP and at most
+    BWD_F64_FACTOR times as far from the f64 VJP as the plain version;
+    returns the largest error against the plain version."""
+    import torch
+
+    require(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
+            f"{tag}: two runs give different bits")
+    worst = 0.0
+    for name, g, pl, ex in zip(names, got, plain, exact, strict=True):
+        require(g.shape == pl.shape and g.dtype == pl.dtype,
+                f"{tag} {name}: {tuple(g.shape)} {g.dtype}, plain "
+                f"{tuple(pl.shape)} {pl.dtype}")
+        e, lim = rel_err(g, pl, rtol)
+        dk, dp = f64_distance(g, ex), f64_distance(pl, ex)
+        print(f"[kernels] {tag} {name}: max abs err {e:.3e} (limit "
+              f"{lim:.3e}); distance to f64 (x max|f64|) kernel {dk:.3e}, "
+              f"plain {dp:.3e} (limit x{BWD_F64_FACTOR})")
+        require(e <= lim, f"{tag} {name}: max abs err {e} > {lim}")
+        require(dk <= BWD_F64_FACTOR * dp, f"{tag} {name}: the kernel is "
+                f"{dk} from f64, its plain version {dp}")
+        worst = max(worst, e)
+    return worst
+
+
+def check_ssd_bwd(dev, gen):
+    """ssd_chunk's backward kernel at the training path's shapes (mamba2:
+    b 2, S 2048, and the padded S 2000, the inputs as the mixer makes
+    them) and SSD_SHAPES' per-group ones, against the plain VJP and the
+    f64 VJP, twice for the bits; timed at b 2, S 2048."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_bwd_ref
+
+    chunk = get_config("mamba2-370m").ssm.chunk_size
+    b, s = LLM_TRAIN["mamba2-370m"]
+    cases = []
+    for seq in (s, 2000):
+        scan = ssd_scan_inputs(gen, b, seq)
+        cases.append((f"S={seq}", spy_args(
+            ops, "ssd_intra_chunk",
+            lambda scan=scan: ops.ssd_chunked_fused(*scan, chunk))))
+    cases += [(f"b,c,l,h,p,g,n={shape}", ssd_kernel_inputs(gen, *shape))
+              for shape in SSD_SHAPES]
+    err, path = 0.0, None
+    for tag, (xdt, dA, B, C) in cases:
+        nb, nc, _, h, p = xdt.shape
+        dy = torch.randn(xdt.shape, generator=gen, device=dev)
+        dst = torch.randn((nb, nc, h, B.shape[4], p), generator=gen,
+                          device=dev)
+        args = (xdt, dA, B, C, dy, dst)
+        err = max(err, hold_bwd(
+            f"ssd_chunk backward {tag}", ("dxdt", "d(dA)", "dB", "dC"),
+            ops.ssd_intra_chunk_bwd(*args), ops.ssd_intra_chunk_bwd(*args),
+            ssd_intra_chunk_bwd_ref(*args),
+            ssd_intra_chunk_bwd_ref(*(a.double() for a in args)), BWD_RTOL))
+        if path is None:
+            path = args
+    xdt, dA, B, C, dy, dst = path
+    nb, nc, l, h, p = xdt.shape
+    g, n = B.shape[3], B.shape[4]
+    # each input read once, each output written once; C Bᵀ once a group;
+    # per head the i >= j half of D = dy xdtᵀ, (L G)ᵀ dy, (L D) B,
+    # (L D)ᵀ C and the two decay products
+    nbytes = 4 * 2 * (xdt.numel() + dA.numel() + B.numel() + C.numel()) \
+        + 4 * (dy.numel() + dst.numel())
+    tri = l * (l + 1) // 2
+    flops = nb * nc * (g * 2 * tri * n + h * (
+        2 * tri * p + 2 * tri * p + 2 * tri * n + 2 * tri * n
+        + 2 * 2 * l * n * p + 4 * tri))
+    bms, by = bound(nbytes, flops)
+    return {"max_abs_err": err,
+            "shape": f"b={nb}, c={nc}, l={l}, h={h}, p={p}, g={g}, n={n} "
+                     f"(S={s})",
+            "ms": cuda_ms(lambda: ops.ssd_intra_chunk_bwd(*path), iters=20,
+                          warmup=3),
+            "device_ms": device_ms("ssd_chunk_bwd",
+                                   lambda: ops.ssd_intra_chunk_bwd(*path),
+                                   iters=10),
+            "plain_ms": cuda_ms(lambda: ssd_intra_chunk_bwd_ref(*path),
+                                iters=5, warmup=1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+
+
+def check_local_attn_bwd(dev, gen):
+    """local_attn's backward kernels through the autograd Function at
+    gemma-2b's training shape (B 2, H 8, KV 1, S 2048, D 256) in bf16 and
+    f32, RecurrentGemma's window 2048 at S 4096 and the padded head dims
+    80 and 192, against the plain VJP and the f64 VJP, twice for the bits;
+    timed at gemma-2b's shape in bf16, beside SDPA's forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_bwd_ref
+
+    def grads(q, k, v, dout, kw):
+        live = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.local_flash_attention(*live, **kw)
+        return torch.autograd.grad(out, live, dout)
+
+    b, s = LLM_TRAIN["gemma-2b"]
+    err = 0.0
+    for (nb, h, kv, seq, d, causal, window, dtype) in ATTN_BWD_CASES:
+        dtype = getattr(torch, dtype)
+        q, dout = (torch.randn(nb, h, seq, d, generator=gen, device=dev)
+                   .to(dtype) for _ in range(2))
+        k, v = (torch.randn(nb, kv, seq, d, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window, scale=d ** -0.5)
+        before = ops.launches_bwd
+        got = grads(q, k, v, dout, kw)
+        require(ops.launches_bwd == before + 1, "local_attn backward: "
+                f"{ops.launches_bwd - before} launches for one gradient")
+        tag = (f"local_attn backward B={nb} H={h} KV={kv} S={seq} D={d} "
+               f"window={window} {dtype}")
+        err = max(err, hold_bwd(
+            tag, ("dq", "dk", "dv"), got, grads(q, k, v, dout, kw),
+            local_attention_bwd_ref(q, k, v, dout, **kw),
+            local_attention_bwd_ref(q.double(), k.double(), v.double(),
+                                    dout.double(), **kw),
+            BWD_RTOL if dtype == torch.float32 else BWD_BF16_RTOL))
+        del got
+        torch.cuda.empty_cache()
+    d, scale = 256, 256 ** -0.5
+    q, dout = (torch.randn(b, 8, s, d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, 1, s, d, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    _, lse = ops._forward_cuda(q, k, v, True, 0, scale, True)
+
+    def kernel():
+        return ops.local_attention_bwd(q, k, v, lse, dout, causal=True,
+                                       window=0, scale=scale)
+
+    def fwd_bwd():
+        return grads(q, k, v, dout, dict(causal=True, window=0, scale=scale))
+
+    def library():
+        live = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*live, is_causal=True,
+                                             scale=scale, enable_gqa=True)
+        return torch.autograd.grad(out, live, dout)
+
+    gaps = [rel_err(a, w, BWD_BF16_RTOL)
+            for a, w in zip(library(), fwd_bwd(), strict=True)]
+    require(all(e <= lim for e, lim in gaps), "the SDPA yardstick's "
+            f"gradient is another function: {gaps}")
+    # each input read once (q, k, v, dout, lse), each output written once
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + q.numel()) + 4 * lse.numel()
+    pairs = b * 8 * s * (s + 1) // 2            # the causal half
+    flops = pairs * 10 * d                      # S, dP, dq, dk, dv
+    bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+    return {"max_abs_err": err,
+            "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, causal, bf16",
+            "ms": cuda_ms(kernel, iters=10, warmup=2),
+            "device_ms": device_ms("local_attn_bwd", kernel, iters=10),
+            "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=10, warmup=2),
+            "plain_ms": cuda_ms(lambda: local_attention_bwd_ref(
+                q, k, v, dout, causal=True, window=0, scale=scale), iters=5,
+                warmup=1),
+            "library_ms": cuda_ms(library, iters=10, warmup=2),
+            "library_is": "SDPA forward + backward",
+            "bound_ms": bms, "bound_by": by,
+            "f32_bound_ms": bound(nbytes, flops)[0],
+            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+
+
 def check_lstm_step_route(dev) -> dict:
     """The forecaster at hidden sizes the sequence kernels have no launch
     shape for: the chained step kernel, forward and loss gradient on the
@@ -1256,7 +1495,9 @@ def phase_kernels(dev) -> dict:
             ("lstm_cell", check_lstm_seq, ("step", check_lstm)),
             ("ewc_update", check_ewc, None), ("dp_clip_noise", check_dp, None),
             ("ssd_chunk", check_ssd, None),
-            ("local_attn", check_local_attn, None)):
+            ("local_attn", check_local_attn, None),
+            ("ssd_chunk_bwd", check_ssd_bwd, None),
+            ("local_attn_bwd", check_local_attn_bwd, None)):
         res = check(dev, gen)
         torch.cuda.synchronize()
         print(f"[kernels] {name} ({res['shape']}): max_abs_err "
@@ -1774,8 +2015,16 @@ class recording_folds:
         self._saved = (store.coalesced_aggregate,
                        store.two_level_coalesced_aggregate,
                        server_proc.coalesced_aggregate, store.plan_coalesce,
-                       server_proc.ShardWorker._greduce)
-        flat, two, worker_flat, plan, greduce = self._saved
+                       server_proc.ShardWorker._greduce,
+                       store.aggregate_models)
+        flat, two, worker_flat, plan, greduce, pair = self._saved
+
+        def rec_pair(base_params, base_meta, updated_params, updated_meta,
+                     delta, cfg):
+            self.folds.append(("pair", base_meta, [(updated_meta, delta)],
+                               cfg, 0))
+            return pair(base_params, base_meta, updated_params, updated_meta,
+                        delta, cfg)
 
         def rec_flat(base_params, base_meta, updates, cfg):
             updates = list(updates)
@@ -1816,6 +2065,7 @@ class recording_folds:
         server_proc.coalesced_aggregate = rec_worker_flat
         store.plan_coalesce = rec_plan
         server_proc.ShardWorker._greduce = rec_greduce
+        store.aggregate_models = rec_pair
         return self.folds
 
     def __exit__(self, *exc):
@@ -1824,7 +2074,8 @@ class recording_folds:
 
         (store.coalesced_aggregate, store.two_level_coalesced_aggregate,
          server_proc.coalesced_aggregate, store.plan_coalesce,
-         server_proc.ShardWorker._greduce) = self._saved
+         server_proc.ShardWorker._greduce,
+         store.aggregate_models) = self._saved
         return False
 
 
@@ -1858,13 +2109,22 @@ def implied_launches(folds, cfg=None) -> int:
     survivor); the process store's global drain makes each worker's
     reduction of its nonzero-weight members and the parent's merge of the
     base (when its weight is nonzero) with the nonempty partials.  Each
-    sum here has at most 64 sets: one launch."""
+    sum here has at most 64 sets: one launch.  An inline fold
+    (``aggregate_models``, recorded with its own config) is one sum unless
+    it takes the sequential fast path or has no sample mass."""
     from repro_torch.core.aggregation import AggregationConfig, plan_coalesce
 
     cfg = AggregationConfig() if cfg is None else cfg
     total = 0
     merge = None          # the open process-tier global drain
     for kind, base, batches, seqs, max_width in folds:
+        if kind == "pair":
+            ((meta, _),) = batches
+            total += not ((seqs.sequential_fast_path
+                           and meta.round == base.round + 1)
+                          or base.samples_learned
+                          + meta.samples_learned <= 0)
+            continue
         if kind == "greduce":
             total += reduce_sums(batches, max_width)
             merge["partials"] += batches > 0
@@ -2313,11 +2573,14 @@ def phase_sharded(dev, flat_idle) -> tuple[dict, dict, dict]:
 # ------------------------------------------------------------------ phase 8
 # the process and TCP server tiers: 2 workers, batched at the threaded
 # runs' max_coalesce; the store stress at benchmarks/multiproc_store.py's
-# shape (4 writers x 100, 4 fetchers x 5,000, 16 clusters, max_coalesce 16)
+# shape (4 writers, 4 fetchers, 16 clusters, max_coalesce 16) with a
+# quarter of its counts (25 submits a writer, 1,250 fetches a fetcher: the
+# full counts took 84-86 s of the smoke at 18-20 submits/s, which phase 14
+# needed; the rates are measured, not held)
 PROCESS = dict(server_processes=2, batch_aggregation=True, max_coalesce=8)
 # the sim's stats keys only a process-sharded store reports
 PROC_FIELDS = ("processes", "respawns", "drain_timeouts")
-MP_STRESS = dict(writers=4, per_writer=100, fetchers=4, per_fetcher=5000,
+MP_STRESS = dict(writers=4, per_writer=25, fetchers=4, per_fetcher=1250,
                  clusters=16, shards=2, max_coalesce=16, pool=8)
 
 
@@ -2607,11 +2870,12 @@ def process_thread_hosted(dev):
 
 
 def process_stress(dev, srv):
-    """``benchmarks/multiproc_store.py``'s mixed storm (4 writers x 100
-    cluster and global submits, 4 fetchers x 5,000 ``request_model`` +
-    ``packb``, 16 clusters, max_coalesce 16) with the forecaster's tree on
-    the card: the process store (2 spawned workers) and the TCP store (the
-    2 subprocess servers).  A measurement: no rate is held."""
+    """``benchmarks/multiproc_store.py``'s mixed storm (4 writers x 25
+    cluster and global submits, 4 fetchers x 1,250 ``request_model`` +
+    ``packb``: a quarter of its counts; 16 clusters, max_coalesce 16) with
+    the forecaster's tree on the card: the process store (2 spawned
+    workers) and the TCP store (the 2 subprocess servers).  A measurement:
+    no rate is held."""
     import torch
     from repro_torch.configs.solar_lstm import SolarLSTMConfig
     from repro_torch.core.store import ProcessShardedModelStore
@@ -2718,11 +2982,13 @@ def merged_hists(dump) -> dict:
 
 
 def cpu_child(out_dir):
-    """The CPU child's job (``start_cpu_child``): the CPU halves of two
-    card-against-CPU checks at hidden 16, one after the other, each
-    result written to ``out_dir`` as JSON: phase 7's sharded sim
-    (``sharded.json``) and phase 9's telemetry sim (``telemetry.json``:
-    its stats and deterministic histograms)."""
+    """The CPU child's job (``start_cpu_child``): the CPU halves of three
+    card-against-CPU checks, one after the other, each result written to
+    ``out_dir``: phase 7's sharded sim at hidden 16 (``sharded.json``),
+    phase 9's telemetry sim at hidden 16 (``telemetry.json``: its stats
+    and deterministic histograms) and phase 12's LLM gradients
+    (``grads_<arch>.pt``: the loss and every leaf's gradient, the plain
+    VJPs)."""
     import torch
 
     sys.path.insert(0, str(REPO / "src"))
@@ -2737,6 +3003,11 @@ def cpu_child(out_dir):
     (out_dir / "telemetry.json").write_text(json.dumps(
         {"stats": stats, "hists": hists,
          "wall_s": time.perf_counter() - t0}))
+    for arch in LLM_ARCHS:
+        cfg, model, params, batch = llm_agree_case(arch)
+        loss, grads = llm_loss_grads(model, cfg, params, batch)
+        torch.save({"loss": loss, "grads": grads},
+                   out_dir / f"grads_{arch}.pt")
 
 
 class CpuChild:
@@ -2758,8 +3029,7 @@ class CpuChild:
             cwd=str(REPO), env=env, stdout=subprocess.DEVNULL,
             stderr=self._err)
 
-    def result(self, name: str) -> dict:
-        path = Path(self._dir.name) / f"{name}.json"
+    def _done(self, path: Path) -> Path:
         try:
             self.proc.wait(timeout=900)
         except subprocess.TimeoutExpired:
@@ -2767,7 +3037,16 @@ class CpuChild:
         require(self.proc.returncode == 0 and path.exists(),
                 f"the CPU child failed (exit {self.proc.returncode}): "
                 f"{(Path(self._dir.name) / 'stderr').read_text()[-2000:]}")
-        return json.loads(path.read_text())
+        return path
+
+    def result(self, name: str) -> dict:
+        return json.loads(self._done(
+            Path(self._dir.name) / f"{name}.json").read_text())
+
+    def tensors(self, name: str) -> dict:
+        import torch
+
+        return torch.load(self._done(Path(self._dir.name) / f"{name}.pt"))
 
     def close(self):
         if self.proc.poll() is None:
@@ -3049,9 +3328,11 @@ def telemetry_parity(dev, srv):
 
 def telemetry_overhead(dev):
     """The flat store stress of phase 7 (8 writers x 150 cluster and global
-    submits, the forecaster's tree) with telemetry off, on, on and off,
-    three times: exact accounting, submits/s of each.  Returns (counts,
-    routes)."""
+    submits, the forecaster's tree) with telemetry off, on, on and off:
+    exact accounting, submits/s of each.  Returns (counts, routes).  (Once
+    in turns: the three rounds PR 20 ran left the cost unresolved, the
+    spread of one setting wider than the difference; the smoke's time
+    went to phase 14.)"""
     import torch
     from repro_torch.configs.solar_lstm import SolarLSTMConfig
     from repro_torch.core.store import ModelStore
@@ -3070,7 +3351,7 @@ def telemetry_overhead(dev):
     draws, want = stress_draws(n_w, per, n_c)
     kw = dict(batch_aggregation=True, max_coalesce=STRESS["max_coalesce"])
     rates, runs = {True: [], False: []}, []
-    for on in (False, True, True, False) * 3:   # in turns
+    for on in (False, True, True, False):       # in turns
         torch.cuda.synchronize()
         reset_launch_counts()
         row = stress_store(
@@ -3081,7 +3362,7 @@ def telemetry_overhead(dev):
         runs.append((launch_counts(), route_counts({})))
     med = {on: sorted(r)[len(r) // 2] for on, r in rates.items()}
     print(f"[telemetry] overhead: store stress submits/s in turns (off, on, "
-          f"on, off) x 3: telemetry on {rates[True]}, off {rates[False]}; "
+          f"on, off): telemetry on {rates[True]}, off {rates[False]}; "
           f"upper medians on {med[True]:.1f}, off {med[False]:.1f}; card: "
           f"{card_line()}")
     return sum_counts(*runs)
@@ -3447,7 +3728,7 @@ def score(dev, arch) -> dict:
                                f"the tensor-core route, expected {want_tc}")
         require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size))
                 < 2.0, f"{arch} loss {loss} is not within 2 of ln V")
-        first = first or counts
+        first = first or dict(counts, local_attn_tc=tc)
     device_profile(f"llm {arch}", lambda: eval_step(params, batch))
     return first
 
@@ -3520,7 +3801,7 @@ def phase_llm(dev) -> dict:
     return counts
 
 
-def phase_llm_agree(dev):
+def phase_llm_agree(dev, child):
     """Decode by replay (no kernel) against the kernel forward on the card,
     in f32 at full width and cut depth; and the CUDA forward against the
     CPU forward (plain versions) from the same weights."""
@@ -3551,25 +3832,83 @@ def phase_llm_agree(dev):
         del params, caches
         torch.cuda.empty_cache()
 
-        cfg, model, cpu_params = llm_model(
-            arch, "cpu", dtype="float32", depth=LLM_AGREE_DEPTH,
-            generator=torch.Generator().manual_seed(3))
+        cfg, model, cpu_params, batch = llm_agree_case(arch)
         seq = LLM_AGREE_SEQ[arch]
-        batch = lm_batch(np.random.default_rng(2), 2, seq, cfg.vocab_size)
         eval_step = build_eval_step(model, cfg)
         t0 = time.perf_counter()
         cpu_loss = eval_step(cpu_params, batch)["loss"].item()
         t_cpu = time.perf_counter() - t0
-        gpu_loss = eval_step(tree_map(lambda x: x.to(dev), cpu_params),
-                             batch)["loss"].item()
+        gpu_params = tree_map(lambda x: x.to(dev), cpu_params)
+        del cpu_params
+        gpu_loss = eval_step(gpu_params, batch)["loss"].item()
         gap = abs(gpu_loss - cpu_loss)
         print(f"[agree] {arch} f32, depth {LLM_AGREE_DEPTH}, batch 2 x {seq}: "
               f"loss CUDA {gpu_loss:.7f} vs CPU {cpu_loss:.7f}, gap "
               f"{gap:.3e} (limit {LLM_AGREE_LOSS}); CPU forward {t_cpu:.1f} s")
         require(gap <= LLM_AGREE_LOSS, f"{arch}: CUDA and CPU losses differ "
                                        f"by {gap}")
-        del cpu_params
+        check_llm_grads(dev, arch, model, cfg, gpu_params, batch,
+                        child.tensors(f"grads_{arch}"))
+        del gpu_params
         torch.cuda.empty_cache()
+
+
+def llm_agree_case(arch):
+    """The CUDA-against-CPU case of phase 12: f32 parameters at full width
+    and depth LLM_AGREE_DEPTH drawn on the CPU from seed 3, and the batch
+    (2 x LLM_AGREE_SEQ); the same in this process and the CPU child."""
+    import numpy as np
+    import torch
+    from repro_torch.data.lm_synth import lm_batch
+
+    cfg, model, params = llm_model(
+        arch, "cpu", dtype="float32", depth=LLM_AGREE_DEPTH,
+        generator=torch.Generator().manual_seed(3))
+    batch = lm_batch(np.random.default_rng(2), 2, LLM_AGREE_SEQ[arch],
+                     cfg.vocab_size)
+    return cfg, model, params, batch
+
+
+def llm_loss_grads(model, cfg, params, batch):
+    """(loss, the gradient of every leaf in JAX's order)."""
+    import torch
+    from repro_torch.training.losses import loss_for_batch
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    live = tree_map(lambda x: x.detach().requires_grad_(), params)
+    loss, _ = loss_for_batch(model, cfg, live, batch)
+    return loss.item(), list(torch.autograd.grad(loss, tree_leaves(live)))
+
+
+def check_llm_grads(dev, arch, model, cfg, params, batch, cpu):
+    """The CUDA gradients (the backward kernels, one launch a layer)
+    against the CPU child's (the plain VJPs) from the same weights and
+    batch: every leaf within LLM_GRAD_RTOL x max(1, max|g_cpu|)."""
+    import torch
+    from repro_torch.kernels import reset_launch_counts
+
+    kernel = LLM_KERNEL[arch]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss, grads = llm_loss_grads(model, cfg, params, batch)
+    torch.cuda.synchronize()
+    bwd = path_counts()[f"{kernel}_bwd"]
+    require(bwd == cfg.n_layers, f"{arch}: {bwd} {kernel} backward "
+                                 f"launches, expected {cfg.n_layers}")
+    require(len(grads) == len(cpu["grads"]), f"{arch}: {len(grads)} leaves "
+            f"on the card, {len(cpu['grads'])} on the CPU")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(grads, cpu["grads"], strict=True)):
+        err = (g.cpu() - w).abs().max().item()
+        lim = LLM_GRAD_RTOL * max(1.0, w.abs().max().item())
+        require(err <= lim, f"{arch}: leaf {i} of the gradient, CUDA vs CPU "
+                            f"max abs err {err} > {lim}")
+        worst = max(worst, err / lim)
+    print(f"[agree] {arch} f32, depth {cfg.n_layers}: gradients CUDA vs CPU "
+          f"(the child's plain VJPs), {len(grads)} leaves, worst max abs "
+          f"err {worst:.3f} of its limit (LLM_GRAD_RTOL {LLM_GRAD_RTOL} x "
+          f"max(1, max|g_cpu|)); losses {loss:.7f} / {cpu['loss']:.7f}; "
+          f"{bwd} {kernel} backward launches")
 
 
 # ----------------------------------------------------------------- phase 12
@@ -3799,6 +4138,208 @@ def phase_example():
           "bounds")
 
 
+# ----------------------------------------------------------------- phase 14
+def path_counts() -> dict:
+    """Every wrapper's ``launches``, the backward kernels' own
+    (``launches_bwd``, as ``<kernel>_bwd``) and local_attn's tensor-core
+    route (``local_attn_tc``)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.local_attn import ops as attn_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    return {**launch_counts(), "ssd_chunk_bwd": ssd_ops.launches_bwd,
+            "local_attn_bwd": attn_ops.launches_bwd,
+            "local_attn_tc": attn_ops.launches_tc}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
+def train_steps(dev, arch):
+    """TRAIN_STEPS AdamW steps of ``arch`` at full width and depth in the
+    config's bf16 on one ``lm_batch(structure=1.0)``, counters set to 0
+    just before each step and read just after: one forward and one
+    backward launch of the path's kernel a layer (gemma-2b's forwards all
+    on the tensor-core route), no other kernel; the loss must fall.
+    Returns (counts summed over the steps, the initial parameters, the
+    state after the steps, the step, the batch)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.lm_synth import lm_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainState, build_train_step
+
+    cfg, model, params = llm_model(arch, dev)
+    b, seq = LLM_TRAIN[arch]
+    batch = lm_batch(np.random.default_rng(4), b, seq, cfg.vocab_size,
+                     structure=1.0)
+    opt = adamw(TRAIN_LR, moment_dtype=getattr(torch, TRAIN_MOMENTS[arch]))
+    step = build_train_step(model, cfg, opt)
+    state = TrainState(params, opt.init(params))
+    kernel = LLM_KERNEL[arch]
+    want = {name: 0 for name in path_counts()}
+    want[kernel], want[f"{kernel}_bwd"] = 2 * cfg.n_layers, cfg.n_layers
+    if kernel == "local_attn":
+        want["local_attn_tc"] = cfg.n_layers
+    total, losses = {}, []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[train] {arch} ({cfg.n_layers} layers, {cfg.dtype}, AdamW "
+              f"lr {TRAIN_LR}, {TRAIN_MOMENTS[arch]} moments) step {i + 1}, "
+              f"batch {b} x {seq}: loss {loss:.6f}, grad_norm "
+              f"{metrics['grad_norm'].item():.4f}, {wall * 1e3:.1f} ms wall, "
+              f"{b * seq / wall:.0f} tokens/s, peak memory {peak:.2f} GiB, "
+              f"launches {json.dumps(counts)}")
+        require(math.isfinite(loss), f"{arch}: step {i + 1} loss {loss}")
+        require(counts == want, f"{arch} step {i + 1} launched {counts}, "
+                                f"expected {want}")
+        total = add_counts(total, counts)
+        losses.append(loss)
+    require(losses[-1] < losses[0], f"{arch}: the loss did not fall over "
+                                    f"{TRAIN_STEPS} steps: {losses}")
+    device_profile(f"train {arch}", lambda: step(state, batch))
+    return total, params, state, batch
+
+
+def anchored_step(dev, init, state, batch):
+    """One AdamW step of mamba2-370m at full width with ``ewc=`` (anchored
+    at the initial parameters, lambda EWC_LAMBDA): exactly one
+    ``ewc_update`` launch beside the SSD's, and the penalty the kernel
+    returns equal to the plain ``ewc_penalty`` of the same parameters."""
+    import torch
+    import repro_torch.training.train_step as train_step_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core.continual import EWCState, ewc_penalty
+    from repro_torch.models.model import build_model
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.optim import adamw
+
+    arch = "mamba2-370m"
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    ewc = EWCState(init, None, EWC_LAMBDA)
+    opt = adamw(TRAIN_LR)
+    step = train_step_mod.build_train_step(model, cfg, opt, ewc=ewc)
+    want = {name: 0 for name in path_counts()}
+    want.update(ssd_chunk=2 * cfg.n_layers, ssd_chunk_bwd=cfg.n_layers,
+                ewc_update=1)
+    penalties = []
+    orig = train_step_mod.ewc_adjusted_gradient
+
+    def spy(*args):
+        out = orig(*args)
+        penalties.append(out[1])
+        return out
+
+    train_step_mod.ewc_adjusted_gradient = spy
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        new_state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts()
+    finally:
+        train_step_mod.ewc_adjusted_gradient = orig
+    got = penalties[0].item()
+    plain = ewc_penalty(state.params, ewc).item()
+    gap = abs(got - plain) / max(abs(plain), 1e-30)
+    print(f"[train] {arch} anchored step (lambda {EWC_LAMBDA}): loss "
+          f"{loss:.6f} = ce {metrics['ce'].item():.6f} + penalty {got:.6f} "
+          f"(plain ewc_penalty {plain:.6f}, relative gap {gap:.3e}, limit "
+          f"{EWC_PENALTY_RTOL}), {wall * 1e3:.1f} ms wall, launches "
+          f"{json.dumps(counts)}")
+    require(counts == want, f"the anchored step launched {counts}, "
+                            f"expected {want}")
+    require(plain > 0 and gap <= EWC_PENALTY_RTOL, f"the kernel's penalty "
+            f"{got} against the plain {plain}")
+    del new_state
+    return counts
+
+
+def federated_llm(dev) -> dict:
+    """``examples/federated_llm_torch.py``'s ``federate`` with mamba2-370m
+    at full width and depth (4 organisations, 2 rounds), counters set to 0
+    just before and read just after, its folds recorded: the eval loss
+    falls, the update count is FED_LLM_UPDATES, the fold launches are the
+    ones the recorded folds imply, and the global model left its init."""
+    import importlib.util
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.utils.tree import tree_leaves
+
+    spec = importlib.util.spec_from_file_location(
+        "federated_llm_torch", REPO / "examples" / "federated_llm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_folds() as folds:
+        out = example.federate("mamba2-370m", cfg=get_config("mamba2-370m"),
+                               device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts()
+    stats = out["stats"]
+    implied = implied_launches(folds)
+    moved = any(bool(torch.any(a != b)) for a, b in zip(
+        tree_leaves(out["fed"].store.params("global")),
+        tree_leaves(out["init_params"]), strict=True))
+    print(f"[train] federated mamba2-370m at full width, 4 organisations, 2 "
+          f"rounds: {wall:.1f} s, eval loss {out['loss0']:.6f} -> "
+          f"{out['loss1']:.6f}, stats {json.dumps(stats)}, {len(folds)} "
+          f"folds recorded, fold launches {counts['fedavg_agg']} (implied "
+          f"{implied}), global model moved {moved}, launches "
+          f"{json.dumps(counts)}")
+    require(out["loss1"] < out["loss0"], "the federated eval loss did not "
+                                         "fall")
+    require(stats["updates"] == FED_LLM_UPDATES, f"{stats['updates']} "
+            f"updates, expected {FED_LLM_UPDATES}")
+    require(counts["fedavg_agg"] == implied and implied > 0,
+            f"{counts['fedavg_agg']} fold launches, the folds imply "
+            f"{implied}")
+    require(counts["ssd_chunk_bwd"] > 0, "no SSD backward launch")
+    require(moved, "the global model equals its init")
+    return counts
+
+
+def phase_train(dev) -> tuple[dict, dict]:
+    """Phase 14: training at full width (see the module docstring).
+    Returns the launches of the "train" path (the counted steps and the
+    anchored step) and of the "fed_llm" path (the federated round)."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts, init, state, batch = train_steps(dev, "mamba2-370m")
+    counts = add_counts(counts, anchored_step(dev, init, state, batch))
+    del init, state, batch
+    torch.cuda.empty_cache()
+    more, *_ = train_steps(dev, "gemma-2b")
+    counts = add_counts(counts, more)
+    torch.cuda.empty_cache()
+    fed = federated_llm(dev)
+    torch.cuda.empty_cache()
+    print(f"[train] phase wall {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}")
+    return counts, fed
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         os.execve(sys.executable, [sys.executable, __file__, *sys.argv[1:]],
@@ -3818,9 +4359,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     child = None
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):                     # each phase's wall time, printed
+        marks.append((name, time.perf_counter()))
+        print(f"[time] {name}: {marks[-1][1] - marks[-2][1]:.1f} s")
+
     try:
         phase_build()
+        mark("build")
         results = phase_kernels(dev)
+        mark("kernels")
         for name, res in results.items():       # the kernels line's own keys
             require(not {"name", "route", "source", "replaces",
                          "launches"} & set(res),
@@ -3828,21 +4377,34 @@ def main() -> int:
                     "line")
         counts, routes = {}, {}
         counts["main"], routes["main"] = phase_main(dev)
+        mark("main")
         phase_profile(dev)
+        mark("profile")
         counts["privacy"], routes["privacy"] = phase_privacy(dev)
+        mark("privacy")
         counts["threaded"], routes["threaded"], idle = phase_threaded(dev)
-        # the CPU halves of two checks run in a child beside phases 7-13
+        mark("threaded")
+        # the CPU halves of three checks run in a child beside phases 7-14
         child = CpuChild()
         counts["sharded"], routes["sharded"], card16 = \
             phase_sharded(dev, idle)
+        mark("sharded")
         counts["process"], routes["process"] = phase_process(dev)
+        mark("process")
         paths, telemetry16 = phase_telemetry_scenario(dev)
         for path, (c, r) in paths.items():
             counts[path], routes[path] = c, r
+        mark("telemetry and scenario")
         counts["llm"] = phase_llm(dev)
+        mark("llm")
         phase_agree(dev)
-        phase_llm_agree(dev)
+        mark("agree")
+        phase_llm_agree(dev, child)
+        mark("llm agree")
         phase_example()
+        mark("example")
+        counts["train"], counts["fed_llm"] = phase_train(dev)
+        mark("train")
         check_sharded_cpu(card16, child.result("sharded"))
         check_telemetry_cpu(child.result("telemetry"), *telemetry16)
     except SmokeFailure as exc:
@@ -3851,17 +4413,24 @@ def main() -> int:
     finally:
         if child is not None:
             child.close()
-    # launches: each path's run, counters set to 0 just before it
+    # launches: each path's run, counters set to 0 just before it; a
+    # backward entry counts its wrapper's launches_bwd
     main_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")
     route_keys = {"lstm_cell": ("lstm_seq_fwd", "lstm_seq_bwd"),
                   "fedavg_agg": ("fedavg_agg_leaves",)}
+    count_keys = {"ssd_chunk": ("ssd_chunk_bwd",),
+                  "local_attn": ("local_attn_tc", "local_attn_bwd")}
+    by_path = {name: {p: c.get(name, 0) for p, c in counts.items()}
+               for name in (*KERNEL_META, "local_attn_tc")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
-                "launches": sum(c[name] for c in counts.values()),
-                "launches_by_path": {p: c[name] for p, c in counts.items()},
+                "launches": sum(by_path[name].values()),
+                "launches_by_path": by_path[name],
                 **{f"launches_{r}": {p: rt[r] for p, rt in routes.items()}
                    for r in route_keys.get(name, ())},
+                **{f"launches_{r}": by_path[r]
+                   for r in count_keys.get(name, ())},
                 **{k: results[name][k] for k in main_keys},
                 **{k: v for k, v in results[name].items()
                    if k not in main_keys}}

@@ -140,3 +140,16 @@ class Client:
         store.submit_secure(level, cluster_key, self.spec.client_id,
                             round_id, masked, delta)
         return delta
+
+    # ------------------------------------------------- one full Alg.1 round
+    def full_round(self, store: ModelStore):
+        """Synchronous-in-client convenience: local + all clusters + global.
+        The async runtimes interleave fetch/submit instead of calling this."""
+        self.train_local()
+        for key in self.cluster_keys:
+            p, m = self.fetch(store, "cluster", key)
+            store_args = self.train_update(p, m, store.model_key("cluster", key))
+            self.submit(store, "cluster", key, *store_args)
+        p, m = self.fetch(store, "global", None)
+        store_args = self.train_update(p, m, store.model_key("global"))
+        self.submit(store, "global", None, *store_args)

@@ -57,9 +57,9 @@ __device__ __forceinline__ void la_store(__nv_bfloat16* p, float v) {
 template <int D, typename T>
 __global__ void __launch_bounds__(LA_THREADS)
 local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-                  int S, int Tk, int t_real, float scale, int causal,
-                  int window) {
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int H, int KV, int S, int Tk,
+                  int t_real, float scale, int causal, int window) {
   constexpr int DS = D + 1;               // padded row stride of Q and K
   constexpr int DE = D / 16;              // output columns per thread
   constexpr int PS = LA_BK + 1;
@@ -164,6 +164,14 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  // each row's log-sum-exp of the scaled scores, for the backward
+  // (local_attn_bwd.cu); a row's 16 lanes hold the same m and lsum
+  if (lse != nullptr && tc == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      lse[((int64_t)bb * H + hh) * S + q0 + tr + 8 * r] =
+          m[r] + logf(lsum[r]);
+  }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const float inv = 1.0f / fmaxf(lsum[r], 1e-30f);
@@ -175,8 +183,9 @@ local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D, typename T>
 static int la_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int S, int Tk, int t_real,
-                     float scale, int causal, int window, cudaStream_t s) {
+                     float* lse, int B, int H, int KV, int S, int Tk,
+                     int t_real, float scale, int causal, int window,
+                     cudaStream_t s) {
   const size_t bytes = sizeof(float) * (LA_BQ * (D + 1) + LA_BK * (D + 1) +
                                         LA_BK * D + LA_BQ * (LA_BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
@@ -185,16 +194,19 @@ static int la_launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(S / LA_BQ), (unsigned)H, (unsigned)B);
   local_attn_kernel<D, T><<<grid, LA_THREADS, bytes, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KV, S, Tk, t_real,
-      scale, causal, window);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, KV, S, Tk,
+      t_real, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 16, 32, 64, 128 or 256.
+// lse: null, or (B, H, S) f32 for each row's log-sum-exp of the scaled
+// scores (the backward's softmax statistics).
 extern "C" int local_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int KV, int S, int Tk,
                                  int t_real, int D, float scale, int causal,
-                                 int window, int dtype, void* stream) {
+                                 int window, int dtype, float* lse,
+                                 void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S % LA_BQ != 0 ||
       Tk % LA_BK != 0 || S < LA_BQ || Tk < LA_BK || t_real < 1 ||
       t_real > Tk || B > 65535 || H > 65535 || window < 0)
@@ -203,10 +215,10 @@ extern "C" int local_attn_launch(const void* q, const void* k, const void* v,
 #define LA_CASE(DV)                                                         \
   case DV:                                                                  \
     return dtype == 0                                                       \
-               ? la_launch<DV, float>(q, k, v, o, B, H, KV, S, Tk, t_real,  \
-                                      scale, causal, window, s)             \
-               : la_launch<DV, __nv_bfloat16>(q, k, v, o, B, H, KV, S, Tk,  \
-                                              t_real, scale, causal,        \
+               ? la_launch<DV, float>(q, k, v, o, lse, B, H, KV, S, Tk,     \
+                                      t_real, scale, causal, window, s)     \
+               : la_launch<DV, __nv_bfloat16>(q, k, v, o, lse, B, H, KV, S, \
+                                              Tk, t_real, scale, causal,    \
                                               window, s);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (D) {

@@ -62,6 +62,7 @@
 #define TC_STAGES 2
 #define TC_NEG_INF (-1073741824.0f)
 #define TC_LOG2E 1.4426950408889634f
+#define TC_LN2 0.6931471805599453f
 
 template <int D>
 struct TcShape {
@@ -347,8 +348,9 @@ local_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      __nv_bfloat16* __restrict__ o, int64_t osb, int64_t osh,
-                     int64_t oss, int B, int H, int KV, int S, int T,
-                     float scale_log2, int causal, int window) {
+                     int64_t oss, float* __restrict__ lse, int B, int H,
+                     int KV, int S, int T, float scale_log2, int causal,
+                     int window) {
   using Sh = TcShape<D>;
   constexpr int BN = Sh::BN;
   __shared__ __align__(8) uint64_t bars[TC_STAGES + 1];  // stages, then Q
@@ -510,6 +512,13 @@ local_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     (kt_lo + i + TC_STAGES) * BN, kvh, bb);
   }
 
+  // the rows' log-sum-exp of the scaled scores, for the backward
+  // (local_attn_bwd.cu); a quad's four lanes hold the same m and l
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + ((int64_t)bb * H + hh) * S;
+    if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * TC_LN2;
+    if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * TC_LN2;
+  }
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
   __nv_bfloat16* ob = o + (int64_t)bb * osb + (int64_t)hh * osh;
 #pragma unroll
@@ -575,7 +584,7 @@ static int tc_map(CUtensorMap* map, const void* ptr, int D, int rows,
 
 template <int D>
 static int tc_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int S, int T,
+                     float* lse, int B, int H, int KV, int S, int T,
                      const long long* st, float scale, int causal, int window,
                      cudaStream_t stream) {
   using Sh = TcShape<D>;
@@ -591,21 +600,23 @@ static int tc_launch(const void* q, const void* k, const void* v, void* o,
   const long long blocks = (long long)((S + TC_BM - 1) / TC_BM) * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   local_attn_tc_kernel<D><<<(unsigned)blocks, TC_THREADS, Sh::SMEM, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, st[9], st[10], st[11], B, H, KV, S, T,
-      scale * TC_LOG2E, causal, window);
+      qm, km, vm, (__nv_bfloat16*)o, st[9], st[10], st[11], lse, B, H, KV,
+      S, T, scale * TC_LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 // bf16 only; D must be 64, 128 or 256.  Strides are in elements, (batch,
 // head, row) for each of q, k, v and o, each a positive multiple of 8 (16
 // bytes, as TMA needs), with the last dimension contiguous and every
-// pointer 16-byte aligned.
+// pointer 16-byte aligned.  lse: null, or (B, H, S) f32 for each row's
+// log-sum-exp of the scaled scores (the backward's softmax statistics).
 extern "C" int local_attn_tc_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int T, int D, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kst, long long vsb,
     long long vsh, long long vst, long long osb, long long osh,
-    long long oss, float scale, int causal, int window, void* stream) {
+    long long oss, float scale, int causal, int window, float* lse,
+    void* stream) {
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kst,
                             vsb, vsh, vst, osb, osh, oss};
   bool ok = B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 && T >= 1 &&
@@ -617,14 +628,14 @@ extern "C" int local_attn_tc_launch(
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return tc_launch<64>(q, k, v, o, B, H, KV, S, T, st, scale, causal,
-                           window, s);
+      return tc_launch<64>(q, k, v, o, lse, B, H, KV, S, T, st, scale,
+                           causal, window, s);
     case 128:
-      return tc_launch<128>(q, k, v, o, B, H, KV, S, T, st, scale, causal,
-                            window, s);
+      return tc_launch<128>(q, k, v, o, lse, B, H, KV, S, T, st, scale,
+                            causal, window, s);
     case 256:
-      return tc_launch<256>(q, k, v, o, B, H, KV, S, T, st, scale, causal,
-                            window, s);
+      return tc_launch<256>(q, k, v, o, lse, B, H, KV, S, T, st, scale,
+                            causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

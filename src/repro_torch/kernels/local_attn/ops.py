@@ -19,7 +19,20 @@ zero-padded on the last dim of q, k and v to the next one
 q·k, the caller's ``scale`` is passed on unchanged, and the output is
 sliced back to D.  The route follows the padded D.  D > 256 raises.
 
-``launches`` counts every launch; ``launches_tc`` the tensor-core route's.
+The call is a ``torch.autograd.Function`` (``LocalAttnFn``) on every
+route.  When a gradient is needed, the forward kernel also writes each
+row's log-sum-exp (its ``lse`` output; null otherwise, so scoring runs
+the kernel as before), and the gradient runs ``local_attention_bwd``:
+CUDA tensors launch ``csrc/local_attn_bwd.cu`` (one C call: the dq kernel,
+which also computes each row's delta = sum_t P dP, the dk/dv kernel, a
+query head a CTA, and the fold of a kv head's query heads in order), in
+f32 on the CUDA cores
+for f32 and bf16 at any instantiated D; CPU tensors run
+``ref.local_attention_bwd_ref``.  The D padding stays outside the
+Function, so its gradient is PyTorch's.
+
+``launches`` counts every launch, forward and backward; ``launches_tc``
+the tensor-core route's; ``launches_bwd`` the backward's.
 """
 
 from __future__ import annotations
@@ -28,7 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.local_attn.ref import local_attention_ref
+from repro_torch.kernels.local_attn.ref import (
+    local_attention_bwd_ref,
+    local_attention_ref,
+)
 
 BLK_Q = 32                      # LA_BQ in csrc/local_attn.cu
 BLK_K = 32                      # LA_BK
@@ -37,6 +53,7 @@ TC_HEAD_DIMS = (64, 128, 256)        # local_attn_tc.cu's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
+launches_bwd = 0
 
 
 def padded_head_dim(head_dim: int) -> int:
@@ -79,7 +96,7 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return out if all(st > 0 and st % 8 == 0 for st in out) else None
 
 
-def _launch_tc(q, k, v, causal, window, scale):
+def _launch_tc(q, k, v, causal, window, scale, lse):
     B, H, S, D = q.shape
     KV, T = k.shape[1], k.shape[2]
     strides = []
@@ -97,19 +114,14 @@ def _launch_tc(q, k, v, causal, window, scale):
     status = build.library().local_attn_tc_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
         S, T, D, *strides, float(scale), int(bool(causal)), int(window),
+        None if lse is None else lse.data_ptr(),
         build.stream_handle(q.device))
     build.check(status, "local_attn")
     build.count(__name__, "launches", "launches_tc")
     return out
 
 
-def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: float = 1.0):
-    """q: (B, H, S, D); k/v: (B, KV, T, D), f32 or bf16 -> (B, H, S, D) in
-    q's dtype.  Arbitrary S/T, any D up to 256."""
-    if not build.on_cuda("local_attn", q, k, v):
-        return local_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("local_attn: q, k, v must be (B, H|KV, S|T, D)")
     B, H, S, D = q.shape
@@ -126,28 +138,118 @@ def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"local_attn: {H} query heads over {KV} kv heads")
     if window < 0:
         raise ValueError(f"local_attn: window {window} < 0")
-    out_shape = (B, H, S, D)
-    if B == 0 or H == 0 or S == 0:
-        return q.new_empty(out_shape)
-    if T == 0:
-        raise ValueError("local_attn: no keys (T = 0)")
-    if padded_head_dim(D) != D:
-        q, k, v = pad_head_dim(q, k, v)
-        return local_flash_attention(q, k, v, causal=causal, window=window,
-                                     scale=scale)[..., :D]
+
+
+def _forward_cuda(q, k, v, causal, window, scale, need_lse):
+    """(out, lse or None) from the forward kernels; D instantiated."""
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    lse = None
     if route(q.dtype, D) == "tc":
-        return _launch_tc(q, k, v, causal, window, scale)
+        if need_lse:
+            lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        return _launch_tc(q, k, v, causal, window, scale, lse), lse
     pad_q, pad_k = (-S) % BLK_Q, (-T) % BLK_K
     qp = F.pad(q, (0, 0, 0, pad_q)) if pad_q else q
     kp = F.pad(k, (0, 0, 0, pad_k)) if pad_k else k
     vp = F.pad(v, (0, 0, 0, pad_k)) if pad_k else v
     qp, kp, vp = qp.contiguous(), kp.contiguous(), vp.contiguous()
     out = torch.empty_like(qp)
+    if need_lse:
+        lse = torch.empty((B, H, S + pad_q), dtype=torch.float32,
+                          device=q.device)
     status = build.launch_sized(
         "local_attn_launch",
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), B, H, KV,
         S + pad_q, T + pad_k, T, D, float(scale), int(bool(causal)),
-        int(window), _DTYPES[q.dtype], build.stream_handle(q.device))
+        int(window), _DTYPES[q.dtype],
+        None if lse is None else lse.data_ptr(),
+        build.stream_handle(q.device))
     build.check(status, "local_attn")
     build.count(__name__, "launches")
-    return out[:, :, :S]
+    return out[:, :, :S], None if lse is None else lse[:, :, :S]
+
+
+def local_attention_bwd(q, k, v, lse, dout, *, causal: bool, window: int,
+                        scale: float):
+    """The gradient (dq, dk, dv) of ``local_flash_attention`` at D
+    instantiated, from the forward's row log-sum-exp ``lse`` (B, H, S)
+    (unused on the CPU, which recomputes the softmax)."""
+    if not build.on_cuda("local_attn", q, k, v, dout):
+        return local_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window, scale=scale)
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"local_attn backward: head_dim {D} is not one of "
+                         f"{HEAD_DIMS}")
+    # the kernels read rows by 16-byte loads: dense and 16-byte aligned
+    q, k, v, dout = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for t in (q, k, v, dout.to(q.dtype)))
+    lse = lse.contiguous()
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"local_attn backward: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected {(B, H, S)} float32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # each query head's dk and dv before the ordered fold over a group
+    heads = torch.empty(2 * B * H * T * D, dtype=torch.float32,
+                        device=q.device)
+    status = build.launch_sized(
+        "local_attn_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), heads.data_ptr(), B, H, KV, S, T,
+        D, float(scale),
+        int(bool(causal)), int(window), _DTYPES[q.dtype],
+        build.stream_handle(q.device))
+    build.check(status, "local_attn backward")
+    build.count(__name__, "launches", "launches_bwd")
+    return dq, dk, dv
+
+
+class LocalAttnFn(torch.autograd.Function):
+    """The forward kernels with ``local_attention_bwd`` as their gradient
+    (the plain versions on the CPU); D instantiated on CUDA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, need_grad):
+        if build.on_cuda("local_attn", q, k, v):
+            out, lse = _forward_cuda(q, k, v, causal, window, scale,
+                                     need_grad)
+        else:
+            out, lse = local_attention_ref(q, k, v, causal=causal,
+                                           window=window, scale=scale), None
+        if need_grad:
+            ctx.save_for_backward(q, k, v, lse)
+            ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = local_attention_bwd(q, k, v, lse, dout, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: float = 1.0):
+    """q: (B, H, S, D); k/v: (B, KV, T, D), f32 or bf16 -> (B, H, S, D) in
+    q's dtype.  Arbitrary S/T, any D up to 256; differentiable."""
+    need_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if not build.on_cuda("local_attn", q, k, v):
+        return LocalAttnFn.apply(q, k, v, causal, window, scale, need_grad)
+    _check(q, k, v, window)
+    B, H, S, D = q.shape
+    if B == 0 or H == 0 or S == 0:
+        return q.new_empty((B, H, S, D))
+    if k.shape[2] == 0:
+        raise ValueError("local_attn: no keys (T = 0)")
+    if padded_head_dim(D) != D:
+        q, k, v = pad_head_dim(q, k, v)
+        return local_flash_attention(q, k, v, causal=causal, window=window,
+                                     scale=scale)[..., :D]
+    return LocalAttnFn.apply(q, k, v, causal, window, scale, need_grad)

@@ -8,6 +8,12 @@ group and block of heads (``heads_per_block``), runs all three products on
 the tensor cores from exact three-way tf32 splits of their operands
 (``csrc/ssd_chunk.cu``), and takes any l, n and p.
 
+``ssd_intra_chunk_bwd`` is its gradient: CUDA tensors launch
+``csrc/ssd_chunk_bwd.cu`` (one C call: a kernel per (batch, chunk, head)
+and an ordered fold of the heads' dB and dC partials over each group),
+CPU tensors run ``ref.ssd_intra_chunk_bwd_ref``.  ``SsdIntraChunkFn`` is
+the ``torch.autograd.Function`` that pairs the two.
+
 ``ssd_chunked_fused`` is the whole chunked scan around it, with the
 signature and semantics of ``repro_torch.models.ssm.ssd_chunked``:
   x: (b, l, h, p), dt: (b, l, h), A: (h,), B/C: (b, l, g, n)
@@ -15,7 +21,11 @@ signature and semantics of ``repro_torch.models.ssm.ssd_chunked``:
 Pipeline, as the reference's ``ssd_chunked_pallas`` but without its
 per-head copies of B and C: pad to the chunk, the kernel for (y_diag,
 chunk states), then the inter-chunk recurrence and the off-diagonal term
-(from the grouped C) in PyTorch.
+(from the grouped C) in PyTorch, differentiated by autograd; the kernel
+pair through ``SsdIntraChunkFn``.
+
+``launches`` counts every launch, forward and backward; ``launches_bwd``
+the backward's alone.
 """
 
 from __future__ import annotations
@@ -26,11 +36,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd_chunk.ref import (
+    ssd_intra_chunk_bwd_ref,
+    ssd_intra_chunk_ref,
+)
 
 HEADS_PER_BLOCK = (4, 2, 1)     # the kernel's instantiations, largest first
 MAX_SMEM = 232_448              # SSD_MAX_SMEM in csrc/ssd_chunk.cu
+BWD_TILE = 32                   # SSDB_T in csrc/ssd_chunk_bwd.cu
 launches = 0
+launches_bwd = 0
 
 
 def smem_bytes(hb: int, l: int) -> int:
@@ -97,6 +112,76 @@ def ssd_intra_chunk(xdt, dA, B, C):
     return y, states
 
 
+def bwd_smem_bytes(l: int, p: int, n: int) -> int:
+    """Dynamic shared memory of the backward kernel's CTA, as
+    ``csrc/ssd_chunk_bwd.cu``'s launcher sizes it: three f64 vectors of l
+    (row sums, column sums, decay terms), cum and w of l, the C and B row
+    tiles and the dy and xdt ones (odd row strides n | 1 and p | 1), three
+    32 x 33 tiles (G, D, M), the n- and p-wide accumulators and dstates
+    (n x (p | 1))."""
+    t, ldn, ldp = BWD_TILE, n | 1, p | 1
+    floats = (2 * l + 2 * t * ldn + 2 * t * ldp + 3 * t * (t + 1) + t * n
+              + t * p + n * ldp)
+    return 8 * 3 * l + 4 * floats
+
+
+def ssd_intra_chunk_bwd(xdt, dA, B, C, dy, dstates):
+    """The gradient of ``ssd_intra_chunk``: dy (b,c,l,h,p) and dstates
+    (b,c,h,n,p) -> (dxdt, d(dA), dB, dC), shaped as xdt, dA, B, C.  f32,
+    contiguous."""
+    if not build.on_cuda("ssd_chunk", xdt, dA, B, C, dy, dstates):
+        return ssd_intra_chunk_bwd_ref(xdt, dA, B, C, dy, dstates)
+    build.require_f32_contiguous("ssd_chunk", xdt=xdt, dA=dA, B=B, C=C,
+                                 dy=dy, dstates=dstates)
+    b, c, l, h, p = xdt.shape
+    g, n = B.shape[3], B.shape[4]
+    for name, t, want in (("dA", dA, (b, c, l, h)), ("B", B, (b, c, l, g, n)),
+                          ("C", C, (b, c, l, g, n)), ("dy", dy, xdt.shape),
+                          ("dstates", dstates, (b, c, h, n, p))):
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"ssd_chunk backward: {name} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(want)}")
+    if g < 1 or h % g:
+        raise ValueError(f"ssd_chunk backward: {h} heads over {g} groups")
+    if bwd_smem_bytes(l, p, n) > MAX_SMEM:
+        raise ValueError(f"ssd_chunk backward: l {l}, p {p}, n {n} do not "
+                         "fit a block's shared memory")
+    dxdt, ddA = torch.empty_like(xdt), torch.empty_like(dA)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    if xdt.numel() == 0 or B.numel() == 0:
+        return dxdt.zero_(), ddA.zero_(), dB.zero_(), dC.zero_()
+    # the heads' dB and dC before the fold over each group's heads
+    scratch = torch.empty(2 * b * c * h * l * n, dtype=torch.float32,
+                          device=xdt.device)
+    status = build.launch_sized(
+        "ssd_chunk_bwd_launch",
+        xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
+        dy.data_ptr(), dstates.data_ptr(), b, c, l, h, g, p, n,
+        dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        scratch.data_ptr(), build.stream_handle(xdt.device))
+    build.check(status, "ssd_chunk backward")
+    build.count(__name__, "launches", "launches_bwd")
+    return dxdt, ddA, dB, dC
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """``ssd_intra_chunk`` with ``ssd_intra_chunk_bwd`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, B, C):
+        ctx.save_for_backward(xdt, dA, B, C)
+        return ssd_intra_chunk(xdt, dA, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        xdt, dA, B, C = ctx.saved_tensors
+        b, c, l, h, p = xdt.shape
+        dy = torch.zeros_like(xdt) if dy is None else dy.contiguous()
+        dstates = (xdt.new_zeros((b, c, h, B.shape[4], p)) if dstates is None
+                   else dstates.contiguous())
+        return ssd_intra_chunk_bwd(xdt, dA, B, C, dy, dstates)
+
+
 def ssd_chunked_fused(x, dt, A, B, C, chunk: int, init_state=None):
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -118,8 +203,8 @@ def ssd_chunked_fused(x, dt, A, B, C, chunk: int, init_state=None):
     xdt = xc * dtc[..., None]
     dA = dtc * A[None, None, None, :]
 
-    y_diag, states = ssd_intra_chunk(xdt.contiguous(), dA.contiguous(),
-                                     Bg.contiguous(), Cg.contiguous())
+    y_diag, states = SsdIntraChunkFn.apply(xdt.contiguous(), dA.contiguous(),
+                                           Bg.contiguous(), Cg.contiguous())
     states = states.transpose(3, 4)                        # (b,c,h,p,n)
 
     # inter-chunk recurrence (sequential over c)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.solar_lstm import SolarLSTMConfig
+from repro_torch.configs.solar_lstm import CONFIG, SolarLSTMConfig
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, LSTMSeqFn, seq_fits
 from repro_torch.sharding.logical import ParamSpec, init_from_schema
 from repro_torch.utils.device import resolve_device
@@ -76,3 +76,7 @@ class SolarForecaster:
         # (~0.08) instead of 0.5, so early training isn't spent unlearning
         # a large constant bias.
         return torch.sigmoid(preds[..., 0] - 2.5)               # normalized to kWp
+
+
+def build_forecaster(cfg: SolarLSTMConfig | None = None) -> SolarForecaster:
+    return SolarForecaster(cfg or CONFIG)

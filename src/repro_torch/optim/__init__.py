@@ -1,0 +1,11 @@
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    adamw,
+    apply_updates,
+    clip_by_global_norm,
+    sgd,
+)
+from repro_torch.optim.schedules import constant, cosine_decay, warmup_cosine
+
+__all__ = ["Optimizer", "adamw", "apply_updates", "clip_by_global_norm",
+           "sgd", "constant", "cosine_decay", "warmup_cosine"]

@@ -7,7 +7,9 @@ vector in the port is laid out in the sorted order, so it lines up with the
 reference's ``flatten_params`` element for element.
 
 The weights bridge (``params_from_numpy`` / ``params_to_numpy``) carries
-parameter trees between the packages as numpy arrays.
+parameter trees between the packages as numpy arrays.  The arithmetic
+helpers (``tree_add`` ... ``global_norm``) are the reference's, leaf by
+leaf in the same order.
 """
 
 from __future__ import annotations
@@ -28,6 +30,63 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     return fn(tree, *rest)
+
+
+def param_count(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def param_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_weighted_sum(trees, weights):
+    """sum_i weights[i] * trees[i], folded left to right as the reference
+    does (the FedAvg primitive; the store's folds use the kernel)."""
+    if not trees or len(trees) != len(weights):
+        raise ValueError("tree_weighted_sum needs one weight a tree")
+    out = tree_scale(trees[0], weights[0])
+    for t, w in zip(trees[1:], weights[1:], strict=True):
+        out = tree_map(lambda a, b, w=w: a + b * w, out, t)
+    return out
+
+
+def tree_dot(a, b):
+    """sum over the leaves of sum(x * y) in f32, added in leaf order."""
+    f32 = torch.float32
+    return sum(torch.sum(x.to(f32) * y.to(f32))
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def global_norm(tree):
+    """sqrt of the f32 sums of squares of the leaves, added in leaf order."""
+    f32 = torch.float32
+    return torch.sqrt(torch.as_tensor(
+        sum(torch.sum(torch.square(x.to(f32))) for x in tree_leaves(tree)),
+        dtype=f32))
+
+
+def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:
+    return all(np.allclose(_to_numpy(x).astype(np.float64),
+                           _to_numpy(y).astype(np.float64),
+                           rtol=rtol, atol=atol)
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
 
 
 def flatten_params(tree) -> torch.Tensor:

@@ -20,11 +20,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.configs.solar_lstm import SolarLSTMConfig
 from repro_torch.core.fedccl import FedCCL, FedCCLConfig
-from repro_torch.models.lstm import SolarForecaster
+from repro_torch.core.protocol import Client, ClientSpec
+from repro_torch.core.store import ModelStore
+from repro_torch.models.lstm import SolarForecaster, build_forecaster
+from repro_torch.models.model import build_model
+from repro_torch.optim import sgd
 from repro_torch.scenario import flash_crowd_burst, make_store, run_scenario
 from repro_torch.training.fed_solar import run_fedccl_solar
+from repro_torch.training.train_step import init_train_state
+from repro_torch.utils.tree import tree_leaves
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
@@ -63,7 +70,8 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py"]
+                         + sorted((REPO / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     for mod in _imports(path):
@@ -99,6 +107,7 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.training.fed_solar\n"
             "import repro_torch.kernels.build\n"
             "import repro_torch.obs, repro_torch.scenario\n"
+            "import repro_torch.optim, repro_torch.training.train_step\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -142,6 +151,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     for topology in ("single", "sharded", "process"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_store(topology, cluster_keys=["c0"])
+    llm = build_model(reduced_for_smoke(get_config("mamba2-370m")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(llm, sgd(0.1), torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -157,3 +169,65 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(alone, tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# ------------------------------------------------ item 5's two functions
+def _scalar_train_fn(params, dataset, rng, anchor):
+    """tests/test_protocol_store.py's scalar train_fn, in either package."""
+    target, n = dataset
+    w = params["w"]
+    for _ in range(3):
+        g = w - target
+        if anchor is not None:
+            g = g + anchor.lam * (w - anchor.anchor["w"])
+        w = w - 0.3 * g
+    return {"w": w}, n, 3
+
+
+def test_client_full_round_matches_jax():
+    import jax.numpy as jnp
+    from repro.core.protocol import Client as JaxClient
+    from repro.core.protocol import ClientSpec as JaxClientSpec
+    from repro.core.store import ModelStore as JaxModelStore
+
+    keys = ["loc:0", "loc:1"]
+
+    def run(store, client):
+        for _ in range(2):
+            client.full_round(store)
+        return store, client
+
+    jstore, jclient = run(
+        JaxModelStore({"w": jnp.zeros(())}, cluster_keys=keys),
+        JaxClient(JaxClientSpec("a0", {}, (1.0, 50)), keys, _scalar_train_fn,
+                  ewc_lambda=0.05, local_params={"w": jnp.zeros(())}))
+    store, client = run(
+        ModelStore({"w": torch.zeros(())}, cluster_keys=keys),
+        Client(ClientSpec("a0", {}, (1.0, 50)), keys, _scalar_train_fn,
+               ewc_lambda=0.05, local_params={"w": torch.zeros(())}))
+    for level, key in [("global", None)] + [("cluster", k) for k in keys]:
+        assert vars(store.meta(level, key)) == vars(jstore.meta(level, key))
+        np.testing.assert_allclose(float(store.params(level, key)["w"]),
+                                   float(jstore.params(level, key)["w"]),
+                                   atol=1e-6)
+    assert vars(client.local_meta) == vars(jclient.local_meta)
+    np.testing.assert_allclose(float(client.local_params["w"]),
+                               float(jclient.local_params["w"]), atol=1e-6)
+    assert store.meta("global").round == 2
+
+
+def test_build_forecaster_matches_jax():
+    import jax
+    from repro.configs.solar_lstm import SolarLSTMConfig as JaxSolarConfig
+    from repro.models.lstm import build_forecaster as jax_build_forecaster
+
+    for port_cfg, jax_cfg in ((None, None),
+                              (SolarLSTMConfig(hidden_size=16),
+                               JaxSolarConfig(hidden_size=16))):
+        got, want = build_forecaster(port_cfg), jax_build_forecaster(jax_cfg)
+        assert isinstance(got, SolarForecaster)
+        assert repr(got.cfg) == repr(want.cfg)
+        shapes = [tuple(x.shape) for x in tree_leaves(got.init(
+            torch.Generator().manual_seed(0), "cpu"))]
+        assert shapes == [tuple(x.shape) for x in jax.tree.leaves(
+            want.init(jax.random.key(0)))]
