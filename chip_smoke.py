@@ -43,9 +43,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
              kernels of ssd_chunk (mamba2-370m's training shape b 2, S
              2048 and the padded S 2000, and SSD_SHAPES) and of local_attn
              (gemma-2b's training shape in bf16 and f32, the window 2048
-             at S 4096, head dims 80 and 192), each against its plain VJP
-             and the VJP in f64 (BWD_F64_FACTOR) and twice for the bits,
-             timed beside SDPA's forward + backward.
+             at S 4096, head dims 80 and 192; bf16 at D 64-256 on the
+             tensor-core route, ``ops.launches_bwd_tc``), each against its
+             plain VJP and the VJP in f64 (BWD_F64_FACTOR) and twice for
+             the bits, local_attn's timed at gemma-2b's shape on both
+             routes (bf16 tensor cores, f32 CUDA cores) beside SDPA's
+             forward + backward in the same dtype.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, the
@@ -186,8 +189,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
              gemma-2b, 3 steps each at B 2 x S 2048 on one
              ``lm_batch(structure=1.0)``, exactly one forward and one
              backward launch of ssd_chunk / local_attn a layer (gemma's
-             forwards on the tensor-core route), the loss falling, wall
-             time, tokens/s, peak memory and the device's kernels by name;
+             forwards and backwards on the tensor-core routes), the loss
+             falling, wall time, tokens/s, peak memory and the device's
+             kernels by name;
              one anchored step of mamba2 (``ewc=``): one ``ewc_update``
              launch, its penalty equal to the plain ``ewc_penalty``; and
              ``examples/federated_llm_torch.py``'s ``federate`` with
@@ -264,7 +268,9 @@ KERNEL_META = {
     # kernels have none; these replace the gradient of the function)
     "ssd_chunk_bwd": ("src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
                       "src/repro/kernels/ssd_chunk/ssd_chunk.py:59"),
-    "local_attn_bwd": ("src/repro_torch/kernels/csrc/local_attn_bwd.cu",
+    # bf16 (the path) on the tensor cores; f32 and head dims 16, 32 take
+    # csrc/local_attn_bwd.cu
+    "local_attn_bwd": ("src/repro_torch/kernels/csrc/local_attn_bwd_tc.cu",
                        "src/repro/kernels/local_attn/local_attn.py:90"),
 }
 # each wrapper's own CUDA kernels, as torch.profiler names them
@@ -278,7 +284,9 @@ KERNEL_SYMBOLS = {
     "ssd_chunk": ("ssd_chunk_tf32_kernel",),
     "local_attn": ("local_attn_tc_kernel", "local_attn_kernel"),
     "ssd_chunk_bwd": ("ssd_chunk_bwd_kernel", "ssd_chunk_bwd_fold_kernel"),
-    "local_attn_bwd": ("local_attn_bwd_dq_kernel",
+    "local_attn_bwd": ("local_attn_bwd_tc_dq_kernel",
+                       "local_attn_bwd_tc_dkdv_kernel",
+                       "local_attn_bwd_dq_kernel",
                        "local_attn_bwd_dkdv_kernel",
                        "local_attn_bwd_fold_kernel"),
 }
@@ -1216,10 +1224,10 @@ def check_local_attn(dev, gen):
     views = [t.transpose(1, 2).contiguous().transpose(1, 2)
              for t in (q, k, v)]
 
-    def library():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              scale=scale, enable_gqa=True)
-    lib_err = (library().float() - ops.local_flash_attention(
+    def library(*args):
+        return lambda: F.scaled_dot_product_attention(
+            *args, is_causal=True, scale=scale, enable_gqa=True)
+    lib_err = (library(q, k, v)().float() - ops.local_flash_attention(
         q, k, v, causal=True, scale=scale).float()).abs().max().item()
     require(lib_err <= 2e-2, f"the SDPA yardstick computes another function "
                              f"({lib_err})")
@@ -1246,7 +1254,9 @@ def check_local_attn(dev, gen):
             "plain_ms": cuda_ms(lambda: local_attention_ref(
                 q, k, v, causal=True, window=0, scale=scale), iters=10,
                 warmup=2),
-            "library_ms": cuda_ms(library, iters=20, warmup=3),
+            "library_ms": cuda_ms(library(q, k, v), iters=20, warmup=3),
+            "f32_library_ms": cuda_ms(library(q32, k32, v32), iters=10,
+                                      warmup=2),
             "bound_ms": bms, "bound_by": by,
             "f32_bound_ms": bound(2 * nbytes, flops)[0],
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
@@ -1343,8 +1353,10 @@ def check_local_attn_bwd(dev, gen):
     """local_attn's backward kernels through the autograd Function at
     gemma-2b's training shape (B 2, H 8, KV 1, S 2048, D 256) in bf16 and
     f32, RecurrentGemma's window 2048 at S 4096 and the padded head dims
-    80 and 192, against the plain VJP and the f64 VJP, twice for the bits;
-    timed at gemma-2b's shape in bf16, beside SDPA's forward + backward."""
+    80 and 192, against the plain VJP and the f64 VJP, twice for the bits,
+    bf16 at D 64-256 on the tensor-core route; timed at gemma-2b's shape
+    on both routes, each beside SDPA's forward + backward in its dtype
+    (the main keys bf16, the ``f32_`` keys the CUDA-core route)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn import ops
@@ -1364,12 +1376,15 @@ def check_local_attn_bwd(dev, gen):
         k, v = (torch.randn(nb, kv, seq, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         kw = dict(causal=causal, window=window, scale=d ** -0.5)
-        before = ops.launches_bwd
+        before = (ops.launches_bwd, ops.launches_bwd_tc)
         got = grads(q, k, v, dout, kw)
-        require(ops.launches_bwd == before + 1, "local_attn backward: "
-                f"{ops.launches_bwd - before} launches for one gradient")
+        tc = ops.route(dtype, d) == "tc"
+        require((ops.launches_bwd, ops.launches_bwd_tc) == (
+            before[0] + 1, before[1] + tc), "local_attn backward: "
+            f"{ops.launches_bwd - before[0]} launches for one gradient, "
+            f"{ops.launches_bwd_tc - before[1]} on the tensor cores")
         tag = (f"local_attn backward B={nb} H={h} KV={kv} S={seq} D={d} "
-               f"window={window} {dtype}")
+               f"window={window} {dtype} ({ops.route(dtype, d)} route)")
         err = max(err, hold_bwd(
             tag, ("dq", "dk", "dv"), got, grads(q, k, v, dout, kw),
             local_attention_bwd_ref(q, k, v, dout, **kw),
@@ -1379,45 +1394,57 @@ def check_local_attn_bwd(dev, gen):
         del got
         torch.cuda.empty_cache()
     d, scale = 256, 256 ** -0.5
-    q, dout = (torch.randn(b, 8, s, d, generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn(b, 1, s, d, generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    _, lse = ops._forward_cuda(q, k, v, True, 0, scale, True)
+    kw = dict(causal=True, window=0, scale=scale)
+    out = {}
+    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+        q, dout = (torch.randn(b, 8, s, d, generator=gen, device=dev)
+                   .to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, 1, s, d, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        _, lse = ops._forward_cuda(q, k, v, True, 0, scale, True)
 
-    def kernel():
-        return ops.local_attention_bwd(q, k, v, lse, dout, causal=True,
-                                       window=0, scale=scale)
+        def kernel():
+            return ops.local_attention_bwd(q, k, v, lse, dout, **kw)
 
-    def fwd_bwd():
-        return grads(q, k, v, dout, dict(causal=True, window=0, scale=scale))
+        def fwd_bwd():
+            return grads(q, k, v, dout, kw)
 
-    def library():
-        live = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*live, is_causal=True,
-                                             scale=scale, enable_gqa=True)
-        return torch.autograd.grad(out, live, dout)
+        def library():
+            live = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*live, is_causal=True,
+                                               scale=scale, enable_gqa=True)
+            return torch.autograd.grad(o, live, dout)
 
-    gaps = [rel_err(a, w, BWD_BF16_RTOL)
-            for a, w in zip(library(), fwd_bwd(), strict=True)]
-    require(all(e <= lim for e, lim in gaps), "the SDPA yardstick's "
-            f"gradient is another function: {gaps}")
-    # each input read once (q, k, v, dout, lse), each output written once
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + q.numel()) + 4 * lse.numel()
+        gaps = [rel_err(a, w, BWD_BF16_RTOL)
+                for a, w in zip(library(), fwd_bwd(), strict=True)]
+        require(all(e <= lim for e, lim in gaps), "the SDPA yardstick's "
+                f"{dtype} gradient is another function: {gaps}")
+        before = ops.launches_bwd_tc
+        kernel()
+        require(ops.launches_bwd_tc - before == (dtype == torch.bfloat16),
+                f"local_attn backward {dtype} took the wrong route")
+        out.update({
+            f"{key}ms": cuda_ms(kernel, iters=10, warmup=2),
+            f"{key}device_ms": device_ms("local_attn_bwd", kernel,
+                                         iters=10),
+            f"{key}fwd_bwd_ms": cuda_ms(fwd_bwd, iters=10, warmup=2),
+            f"{key}plain_ms": cuda_ms(lambda: local_attention_bwd_ref(
+                q, k, v, dout, **kw), iters=5, warmup=1),
+            f"{key}library_ms": cuda_ms(library, iters=10, warmup=2)})
+        if dtype == torch.bfloat16:
+            # each input read once (q, k, v, dout, lse), each output
+            # written once
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                          + q.numel()) + 4 * lse.numel()
+        del q, k, v, dout, lse
+        torch.cuda.empty_cache()
     pairs = b * 8 * s * (s + 1) // 2            # the causal half
     flops = pairs * 10 * d                      # S, dP, dq, dk, dv
     bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
     return {"max_abs_err": err,
-            "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, causal, bf16",
-            "ms": cuda_ms(kernel, iters=10, warmup=2),
-            "device_ms": device_ms("local_attn_bwd", kernel, iters=10),
-            "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=10, warmup=2),
-            "plain_ms": cuda_ms(lambda: local_attention_bwd_ref(
-                q, k, v, dout, causal=True, window=0, scale=scale), iters=5,
-                warmup=1),
-            "library_ms": cuda_ms(library, iters=10, warmup=2),
-            "library_is": "SDPA forward + backward",
+            "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, causal, bf16 "
+                     "(f32_ keys: f32)",
+            **out, "library_is": "SDPA forward + backward",
             "bound_ms": bms, "bound_by": by,
             "f32_bound_ms": bound(nbytes, flops)[0],
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
@@ -4142,13 +4169,14 @@ def phase_example():
 def path_counts() -> dict:
     """Every wrapper's ``launches``, the backward kernels' own
     (``launches_bwd``, as ``<kernel>_bwd``) and local_attn's tensor-core
-    route (``local_attn_tc``)."""
+    routes (``local_attn_tc``, ``local_attn_bwd_tc``)."""
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.local_attn import ops as attn_ops
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
     return {**launch_counts(), "ssd_chunk_bwd": ssd_ops.launches_bwd,
             "local_attn_bwd": attn_ops.launches_bwd,
+            "local_attn_bwd_tc": attn_ops.launches_bwd_tc,
             "local_attn_tc": attn_ops.launches_tc}
 
 
@@ -4160,8 +4188,9 @@ def train_steps(dev, arch):
     """TRAIN_STEPS AdamW steps of ``arch`` at full width and depth in the
     config's bf16 on one ``lm_batch(structure=1.0)``, counters set to 0
     just before each step and read just after: one forward and one
-    backward launch of the path's kernel a layer (gemma-2b's forwards all
-    on the tensor-core route), no other kernel; the loss must fall.
+    backward launch of the path's kernel a layer (gemma-2b's forwards and
+    backwards all on the tensor-core routes), no other kernel; the loss
+    must fall.
     Returns (counts summed over the steps, the initial parameters, the
     state after the steps, the step, the batch)."""
     import numpy as np
@@ -4182,7 +4211,7 @@ def train_steps(dev, arch):
     want = {name: 0 for name in path_counts()}
     want[kernel], want[f"{kernel}_bwd"] = 2 * cfg.n_layers, cfg.n_layers
     if kernel == "local_attn":
-        want["local_attn_tc"] = cfg.n_layers
+        want["local_attn_tc"] = want["local_attn_bwd_tc"] = cfg.n_layers
     total, losses = {}, []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -4420,9 +4449,11 @@ def main() -> int:
     route_keys = {"lstm_cell": ("lstm_seq_fwd", "lstm_seq_bwd"),
                   "fedavg_agg": ("fedavg_agg_leaves",)}
     count_keys = {"ssd_chunk": ("ssd_chunk_bwd",),
-                  "local_attn": ("local_attn_tc", "local_attn_bwd")}
+                  "local_attn": ("local_attn_tc", "local_attn_bwd"),
+                  "local_attn_bwd": ("local_attn_bwd_tc",)}
     by_path = {name: {p: c.get(name, 0) for p, c in counts.items()}
-               for name in (*KERNEL_META, "local_attn_tc")}
+               for name in (*KERNEL_META, "local_attn_tc",
+                            "local_attn_bwd_tc")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": sum(by_path[name].values()),

@@ -45,12 +45,14 @@ SIGNATURES = {
     "ewc_update_launch": [_F, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "dp_clip_noise_launch": [_P, _P, _F, _F, _L, _P, _P, _P],
     "ssd_chunk_launch": [*[_P] * 4, *[_I] * 8, _P, _P, _P],
-    "ssd_chunk_bwd_launch": [*[_P] * 6, *[_I] * 7, *[_P] * 5, _P],
+    "ssd_chunk_bwd_launch": [*[_P] * 6, *[_I] * 8, *[_P] * 5, _P],
     "local_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                           _I, _I, _P, _P],
     "local_attn_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              *[_L] * 12, _F, _I, _I, _P, _P],
     "local_attn_bwd_launch": [*[_P] * 10, *[_I] * 6, _F, _I, _I, _I, _P],
+    "local_attn_bwd_tc_launch": [*[_P] * 10, *[_I] * 6, *[_L] * 12, _F, _I,
+                                 _I, _P],
     "lstm_seq_fwd_launch": [*[_P] * 6, *[_I] * 6, *[_P] * 5, _P],
     "lstm_seq_bwd_launch": [*[_P] * 7, *[_I] * 5, *[_P] * 3, _P],
     "fedavg_agg_leaves_launch": [_P, _P],
@@ -155,11 +157,12 @@ def launch_sized(name: str, *args) -> int:
     """Call the library's launch function ``name`` under ``_sized_lock``:
     for the launchers that set their kernel's dynamic shared-memory limit
     to this call's size and then launch (the LSTM sequence scans,
-    ``local_attn.cu`` and its backward, ``ssd_chunk`` and its backward).  The limit belongs to the kernel,
-    not to the thread, so a thread launching the same kernel at a smaller
-    size could lower it between another thread's set and launch, and that
-    launch would fail with "invalid argument" (two client threads running
-    the encoder's and the decoder's scans did, on an H100)."""
+    ``local_attn.cu`` and both backward routes, ``ssd_chunk`` and its
+    backward).  The limit belongs to the kernel, not to the thread, so a
+    thread launching the same kernel at a smaller size could lower it
+    between another thread's set and launch, and that launch would fail
+    with "invalid argument" (two client threads running the encoder's and
+    the decoder's scans did, on an H100)."""
     fn = getattr(library(), name)
     with _sized_lock:
         return fn(*args)

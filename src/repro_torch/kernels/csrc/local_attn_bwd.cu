@@ -450,6 +450,20 @@ __global__ void local_attn_bwd_fold_kernel(const float* __restrict__ dk_head,
   }
 }
 
+// the fold of the tensor-core route's partials (local_attn_bwd_tc.cu),
+// bf16 dk and dv
+int local_attn_bwd_fold_bf16(const float* dk_head, const float* dv_head,
+                             void* dk, void* dv, int64_t total, int g,
+                             int64_t head_stride, float scale,
+                             cudaStream_t s) {
+  const int64_t blocks = (total + 255) / 256;
+  local_attn_bwd_fold_kernel<__nv_bfloat16>
+      <<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
+          dk_head, dv_head, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, total, g,
+          head_stride, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename T>
 static int lb_launch(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, void* dq, void* dk,

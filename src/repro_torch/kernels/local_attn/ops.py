@@ -22,17 +22,22 @@ sliced back to D.  The route follows the padded D.  D > 256 raises.
 The call is a ``torch.autograd.Function`` (``LocalAttnFn``) on every
 route.  When a gradient is needed, the forward kernel also writes each
 row's log-sum-exp (its ``lse`` output; null otherwise, so scoring runs
-the kernel as before), and the gradient runs ``local_attention_bwd``:
-CUDA tensors launch ``csrc/local_attn_bwd.cu`` (one C call: the dq kernel,
-which also computes each row's delta = sum_t P dP, the dk/dv kernel, a
-query head a CTA, and the fold of a kv head's query heads in order), in
-f32 on the CUDA cores
-for f32 and bf16 at any instantiated D; CPU tensors run
-``ref.local_attention_bwd_ref``.  The D padding stays outside the
-Function, so its gradient is PyTorch's.
+the kernel as before), and the gradient runs ``local_attention_bwd`` on
+the forward's route (``route`` decides both):
+- ``"tc"``: ``csrc/local_attn_bwd_tc.cu`` on the tensor cores (one C call:
+  the dq kernel, which first sums each row's delta = sum_t P dP from S and
+  dP, the dv and the dk pass, a query head a CTA, and the fold of a kv
+  head's query heads in order); q, k, v and dout by their strides, as the
+  forward reads them.
+- ``"cuda_core"``: ``csrc/local_attn_bwd.cu`` in f32 on the CUDA cores (one
+  C call: the dq kernel with its own delta pass, the dk/dv kernel and the
+  same fold); dense inputs.
+CPU tensors run ``ref.local_attention_bwd_ref``.  The D padding stays
+outside the Function, so its gradient is PyTorch's.
 
 ``launches`` counts every launch, forward and backward; ``launches_tc``
-the tensor-core route's; ``launches_bwd`` the backward's.
+the forward's tensor-core route; ``launches_bwd`` the backward's, and
+``launches_bwd_tc`` its tensor-core route's.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
 launches_bwd = 0
+launches_bwd_tc = 0
 
 
 def padded_head_dim(head_dim: int) -> int:
@@ -96,19 +102,24 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return out if all(st > 0 and st % 8 == 0 for st in out) else None
 
 
-def _launch_tc(q, k, v, causal, window, scale, lse):
-    B, H, S, D = q.shape
-    KV, T = k.shape[1], k.shape[2]
-    strides = []
-    ins = []
-    for t in (q, k, v):
+def _tma_inputs(*tensors):
+    """The tensors as TMA reads them (a view it cannot step through is
+    copied dense) and their (batch, head, row) strides, concatenated."""
+    ins, strides = [], []
+    for t in tensors:
         st = tma_strides(t)
-        if st is None:                  # a view TMA cannot step through
+        if st is None:
             t = t.clone(memory_format=torch.contiguous_format)
             st = tma_strides(t)
         ins.append(t)
         strides.extend(st)
-    q, k, v = ins
+    return ins, strides
+
+
+def _launch_tc(q, k, v, causal, window, scale, lse):
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    (q, k, v), strides = _tma_inputs(q, k, v)
     out = torch.empty_like(q)           # q's layout when q is dense
     strides.extend(tma_strides(out))
     status = build.library().local_attn_tc_launch(
@@ -183,19 +194,33 @@ def local_attention_bwd(q, k, v, lse, dout, *, causal: bool, window: int,
     if D not in HEAD_DIMS:
         raise ValueError(f"local_attn backward: head_dim {D} is not one of "
                          f"{HEAD_DIMS}")
-    # the kernels read rows by 16-byte loads: dense and 16-byte aligned
-    q, k, v, dout = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-                     else t.clone(memory_format=torch.contiguous_format)
-                     for t in (q, k, v, dout.to(q.dtype)))
     lse = lse.contiguous()
     if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"local_attn backward: lse {tuple(lse.shape)} "
                          f"{lse.dtype}, expected {(B, H, S)} float32")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dout = dout.to(q.dtype)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     # each query head's dk and dv before the ordered fold over a group
     heads = torch.empty(2 * B * H * T * D, dtype=torch.float32,
                         device=q.device)
+    dense = dict(dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, H, S, D), **dense)
+    dk, dv = (torch.empty((B, KV, T, D), **dense) for _ in range(2))
+    if route(q.dtype, D) == "tc":
+        (q, k, v, dout), strides = _tma_inputs(q, k, v, dout)
+        status = build.launch_sized(
+            "local_attn_bwd_tc_launch", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), heads.data_ptr(),
+            B, H, KV, S, T, D, *strides, float(scale), int(bool(causal)),
+            int(window), build.stream_handle(q.device))
+        build.check(status, "local_attn backward")
+        build.count(__name__, "launches", "launches_bwd", "launches_bwd_tc")
+        return dq, dk, dv
+    # the CUDA-core kernels read rows by 16-byte loads: dense and aligned
+    q, k, v, dout = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for t in (q, k, v, dout))
     status = build.launch_sized(
         "local_attn_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -9,10 +9,12 @@ the tensor cores from exact three-way tf32 splits of their operands
 (``csrc/ssd_chunk.cu``), and takes any l, n and p.
 
 ``ssd_intra_chunk_bwd`` is its gradient: CUDA tensors launch
-``csrc/ssd_chunk_bwd.cu`` (one C call: a kernel per (batch, chunk, head)
-and an ordered fold of the heads' dB and dC partials over each group),
-CPU tensors run ``ref.ssd_intra_chunk_bwd_ref``.  ``SsdIntraChunkFn`` is
-the ``torch.autograd.Function`` that pairs the two.
+``csrc/ssd_chunk_bwd.cu`` (one C call: a kernel per (batch, chunk, block
+of heads, ``bwd_heads_per_block``) on the tensor cores by the same exact
+split, and an ordered fold of the head blocks' dB and dC partials over
+each group), CPU tensors run ``ref.ssd_intra_chunk_bwd_ref``.
+``SsdIntraChunkFn`` is the ``torch.autograd.Function`` that pairs the
+two.
 
 ``ssd_chunked_fused`` is the whole chunked scan around it, with the
 signature and semantics of ``repro_torch.models.ssm.ssd_chunked``:
@@ -43,7 +45,7 @@ from repro_torch.kernels.ssd_chunk.ref import (
 
 HEADS_PER_BLOCK = (4, 2, 1)     # the kernel's instantiations, largest first
 MAX_SMEM = 232_448              # SSD_MAX_SMEM in csrc/ssd_chunk.cu
-BWD_TILE = 32                   # SSDB_T in csrc/ssd_chunk_bwd.cu
+BWD_TILE = 32                   # SB_T in csrc/ssd_chunk_bwd.cu
 launches = 0
 launches_bwd = 0
 
@@ -112,17 +114,42 @@ def ssd_intra_chunk(xdt, dA, B, C):
     return y, states
 
 
-def bwd_smem_bytes(l: int, p: int, n: int) -> int:
-    """Dynamic shared memory of the backward kernel's CTA, as
-    ``csrc/ssd_chunk_bwd.cu``'s launcher sizes it: three f64 vectors of l
-    (row sums, column sums, decay terms), cum and w of l, the C and B row
-    tiles and the dy and xdt ones (odd row strides n | 1 and p | 1), three
-    32 x 33 tiles (G, D, M), the n- and p-wide accumulators and dstates
-    (n x (p | 1))."""
-    t, ldn, ldp = BWD_TILE, n | 1, p | 1
-    floats = (2 * l + 2 * t * ldn + 2 * t * ldp + 3 * t * (t + 1) + t * n
-              + t * p + n * ldp)
-    return 8 * 3 * l + 4 * floats
+def bwd_smem_bytes(hb: int, l: int, p: int, n: int) -> int:
+    """Dynamic shared memory of the backward kernel's CTA of ``hb`` heads,
+    as ``csrc/ssd_chunk_bwd.cu``'s ``sb_layout`` sizes it: n and p padded
+    to the 32-wide tiles (row strides + 4 for the operands, + 8 for the
+    running sums); C_i and the heads' dy (or the decay products E), then
+    G, D / PG, PD and M (or the dstates slices), B_j and the heads' xdt,
+    the dB / dC and dxdt sums and cum, all f32; then two f64 vectors of l
+    a head (d cum and the decay terms)."""
+    t = BWD_TILE
+    nw, pw = -(-n // t) * t, -(-p // t) * t
+    ldn, ldp, ld1, ld2 = nw + 4, pw + 4, nw + 8, pw + 8
+    lp = -(-l // t) * t
+    ra = max(t * ldn + hb * t * ldp, hb * t * ld2)
+    rb = max((2 + hb) * t * 40 + hb * t * 33, hb * t * ldp)
+    floats = (ra + rb + t * ldn + hb * t * ldp + t * ld1 + hb * t * ld2
+              + hb * lp)
+    return 4 * (floats + floats % 2) + 8 * 2 * hb * l
+
+
+def bwd_heads_per_block(blocks: int, h: int, g: int, sms: int, l: int,
+                        p: int, n: int) -> int:
+    """Heads a backward CTA takes: the most of ``HEADS_PER_BLOCK`` that
+    divides the heads of a group, fits shared memory and still gives at
+    least 90 % of the ``sms`` SMs a CTA (``blocks`` = b * c CTAs per head
+    block: at mamba2-370m's training shape 4 heads make 128 CTAs for 132
+    SMs, one wave, where 2 would make two and form G twice as often), else
+    the fewest that fits.  Raises where none fits."""
+    fits = [hb for hb in HEADS_PER_BLOCK
+            if (h // g) % hb == 0 and bwd_smem_bytes(hb, l, p, n) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"ssd_chunk backward: l {l}, p {p}, n {n} do not "
+                         "fit a block's shared memory")
+    for hb in fits:
+        if 10 * blocks * (h // hb) >= 9 * sms:
+            return hb
+    return fits[-1]
 
 
 def ssd_intra_chunk_bwd(xdt, dA, B, C, dy, dstates):
@@ -143,20 +170,19 @@ def ssd_intra_chunk_bwd(xdt, dA, B, C, dy, dstates):
                              f"{tuple(t.shape)}, expected {tuple(want)}")
     if g < 1 or h % g:
         raise ValueError(f"ssd_chunk backward: {h} heads over {g} groups")
-    if bwd_smem_bytes(l, p, n) > MAX_SMEM:
-        raise ValueError(f"ssd_chunk backward: l {l}, p {p}, n {n} do not "
-                         "fit a block's shared memory")
     dxdt, ddA = torch.empty_like(xdt), torch.empty_like(dA)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     if xdt.numel() == 0 or B.numel() == 0:
         return dxdt.zero_(), ddA.zero_(), dB.zero_(), dC.zero_()
-    # the heads' dB and dC before the fold over each group's heads
-    scratch = torch.empty(2 * b * c * h * l * n, dtype=torch.float32,
+    hb = bwd_heads_per_block(b * c, h, g, _sm_count(xdt.device.index), l,
+                             p, n)
+    # the head blocks' dB and dC before the fold over each group's blocks
+    scratch = torch.empty(2 * b * c * (h // hb) * l * n, dtype=torch.float32,
                           device=xdt.device)
     status = build.launch_sized(
         "ssd_chunk_bwd_launch",
         xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
-        dy.data_ptr(), dstates.data_ptr(), b, c, l, h, g, p, n,
+        dy.data_ptr(), dstates.data_ptr(), b, c, l, h, g, p, n, hb,
         dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         scratch.data_ptr(), build.stream_handle(xdt.device))
     build.check(status, "ssd_chunk backward")

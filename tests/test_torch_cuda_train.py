@@ -136,6 +136,49 @@ def test_local_attn_backward_matches_plain_and_f64(B, H, KV, S, D, causal,
          F32_RTOL if dtype == torch.float32 else BF16_RTOL)
 
 
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window", [
+    (1, 8, 1, 2000, 256, True, 0),    # gemma-2b's heads, S off every tile
+    (1, 8, 2, 256, 128, True, 0),     # GQA with two kv heads
+    (1, 4, 1, 320, 64, True, 100),    # a window that cuts the tiles
+    (2, 4, 4, 200, 128, False, 0),    # bidirectional
+])
+def test_local_attn_backward_tensor_core_route(B, H, KV, S, D, causal,
+                                               window, cuda):
+    """The bf16 tensor-core route at its edges: rows past S and T filled
+    by TMA, kv heads folded in order, tiles cut by a window, no mask."""
+    q, k, v, dout = attn_case(torch.Generator(device=cuda).manual_seed(S + D),
+                              B, H, KV, S, D, torch.bfloat16)
+    kw = dict(causal=causal, window=window, scale=D ** -0.5)
+    before = (attn_ops.launches_bwd, attn_ops.launches_bwd_tc)
+    _, got = attn_grads(q, k, v, dout, **kw)
+    assert (attn_ops.launches_bwd, attn_ops.launches_bwd_tc) == (
+        before[0] + 1, before[1] + 1)
+    _, again = attn_grads(q, k, v, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    plain = local_attention_bwd_ref(q, k, v, dout, **kw)
+    exact = local_attention_bwd_ref(q.double(), k.double(), v.double(),
+                                    dout.double(), **kw)
+    hold(("dq", "dk", "dv"), got, plain, exact, BF16_RTOL)
+
+
+@pytest.mark.parametrize("b,c,l,h,p,g,n", [
+    (1, 2, 64, 6, 32, 1, 48),         # 6 heads a group: 4 do not divide them
+    (2, 1, 100, 5, 16, 1, 24),        # 5: one a CTA
+])
+def test_ssd_backward_head_blocks_that_do_not_divide(b, c, l, h, p, g, n,
+                                                     cuda):
+    hb = ssd_ops.bwd_heads_per_block(b * c, h, g, 132, l, p, n)
+    assert (h // g) % hb == 0 and hb < 4
+    args = ssd_case(torch.Generator(device=cuda).manual_seed(l + h), b, c, l,
+                    h, p, g, n)
+    got = ssd_ops.ssd_intra_chunk_bwd(*args)
+    again = ssd_ops.ssd_intra_chunk_bwd(*args)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again, strict=True))
+    plain = ssd_intra_chunk_bwd_ref(*args)
+    exact = ssd_intra_chunk_bwd_ref(*(a.double() for a in args))
+    hold(("dxdt", "d(dA)", "dB", "dC"), got, plain, exact, F32_RTOL)
+
+
 @pytest.mark.parametrize("arch", ["mamba2-370m", "gemma-2b"])
 def test_llm_gradients_on_card_match_cpu(arch, cuda):
     cfg = reduced_for_smoke(get_config(arch))
