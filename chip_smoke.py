@@ -148,19 +148,24 @@ Phases, each fatal on failure (non-zero exit, no final line):
              kernel calls, the EWC runs nearer their season-A anchors),
              and at width 1,024 against the CPU; a flash crowd with DP
              whose epsilon equals the CPU's.
-11. llm     — batched scoring (``build_eval_step``) of mamba2-370m (4 x 2048
-             tokens) and gemma-2b (2 x 2048) at full width and depth in
-             bf16, counters reset before and read after each run: exactly
-             one ``ssd_chunk`` / ``local_attn`` launch per layer (48 / 18),
-             a finite loss within 2 of ln V, wall time, peak memory and
-             the device's kernels by name, gemma's 18 launches all on
-             local_attn's tensor-core route (``ops.launches_tc``); then
-             greedy serving of both at full width in f32 and in the
-             configs' bf16 (see
-             SERVE_DTYPE): ``generate`` and ``generate_ragged``
-             (examples/serve_batched.py's mix), no kernel launched, and
-             ragged equal to independent decoding (held in f32, reported
-             in bf16).
+11. llm     — batched scoring (``build_eval_step``) at full width in the
+             configs' bf16 of every family, counters reset before and read
+             after each run: mamba2-370m (4 x 2048 tokens) and gemma-2b
+             (2 x 2048), deepseek-moe-16b (2 x 2048), recurrentgemma-9b
+             (2 x 4096, so its 2048 window binds), hubert-xlarge (2 x
+             4096 frames, bidirectional), deepseek-v3-671b at depth 4 (its
+             3 dense layers and one MoE layer, MTP included, 2 x 2048) and
+             internvl2-76b at depth 8 of 80 (2 x (256 patches + 2048
+             text)): exactly one ``ssd_chunk`` launch a layer / one
+             ``local_attn`` launch an attention-bearing block (48 / 18, 28,
+             12, 48, 4 + 1, 8), every local_attn launch on its tensor-core
+             route (``ops.launches_tc``), each cross entropy finite and
+             within 2 of ln V, wall time, peak memory and (``profile``)
+             the device's kernels by name; then greedy serving at full
+             width in the configs' bf16 of the five decoders (``serve``;
+             deepseek-v3-671b at depth 4): ``generate`` and
+             ``generate_ragged`` (examples/serve_batched.py's mix), no
+             kernel launched (ragged equality held in f32 in phase 12).
 12. agree  — small runs on CUDA (kernels) and on the CPU (plain versions)
              from the same initial weights, without privacy, with DP and
              secure aggregation, and with DP alone (at a smaller clip, see
@@ -173,11 +178,16 @@ Phases, each fatal on failure (non-zero exit, no final line):
              and the threaded runtime's secure run with DP clipping (noise
              0): Table II must agree, stats and budgets be equal.
              The LLM path: decode by replay against the kernel forward (f32,
-             full width, 4 layers, T 64), and the CUDA loss against the CPU
-             loss from the same weights (f32, full width, 2 layers), and
-             the CUDA gradients (one backward launch a layer) against the
-             CPU gradients of the same weights and batch (the CPU half in
-             the child of phase 7), every leaf within LLM_GRAD_RTOL.
+             full width, depth 4, T 64; recurrentgemma-9b at depth 3 over
+             T 2112, its 2048-slot rolling cache wrapping) for every decoder
+             family, no kernel launched (MoE at a capacity that drops
+             nothing, ``dropless``); ragged equal to independent
+             decoding in f32 at that depth (``ragged``); and the CUDA loss
+             and gradients (one backward launch a layer or attention block)
+             against the CPU child's from the same weights and batch (f32,
+             full width or ``narrow``'s, at ``agree``'s depth; the
+             CPU half in the child of phase 7), every leaf within
+             LLM_GRAD_RTOL.
 13. example — ``examples/solar_forecasting_torch.py --out <tmp>`` as a
              subprocess on the card: exit 0, Table II printed and, in its
              ``solar_report.json``, finite and inside the system test's
@@ -195,7 +205,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
              one anchored step of mamba2 (``ewc=``): one ``ewc_update``
              launch, its penalty equal to the plain ``ewc_penalty``; and
              ``examples/federated_llm_torch.py``'s ``federate`` with
-             mamba2-370m at full width (4 organisations, 2 rounds): the
+             mamba2-370m at full width, 12 of 48 layers (FED_LLM_DEPTH;
+             4 organisations, 2 rounds): the
              eval loss falls, FED_LLM_UPDATES updates, fold launches equal
              to what the recorded folds imply, the global model moved.
 
@@ -216,6 +227,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -291,27 +303,96 @@ KERNEL_SYMBOLS = {
                        "local_attn_bwd_fold_kernel"),
 }
 
-# the LLM path: batched scoring (build_eval_step) and greedy serving
-# (ServeEngine) at the full width and depth of each config, weights random
-# from the seed
-LLM_ARCHS = ("mamba2-370m", "gemma-2b")
-LLM_KERNEL = {"mamba2-370m": "ssd_chunk", "gemma-2b": "local_attn"}
-LLM_SCORING = {"mamba2-370m": (4, 2048), "gemma-2b": (2, 2048)}  # batch, S
+@dataclass(frozen=True)
+class LLMRow:
+    """What the smoke runs of one LLM config (one row of ``LLM``)."""
+
+    score: tuple            # phase 11's scoring batch: (batch, S)
+    agree: tuple            # phase 12's CUDA-against-CPU case: (depth, S)
+    kernel: str = "local_attn"  # the path's kernel, one launch a layer
+    depth: int | None = None    # the card's depth cut (the width never)
+    profile: bool = False   # scoring's device profile
+    serve: bool = False     # bf16 serving at full width (phase 11)
+    decode: tuple | None = None     # decode by replay: (depth, T)
+    dropless: bool = False  # decode by replay at a capacity dropping nothing
+    ragged: bool = False    # ragged == independent in f32 at the decode depth
+    narrow: dict | None = None      # the CUDA-against-CPU case's narrowing
+    patches: int | None = None      # the CUDA-against-CPU case's patches
+
+
+# The LLM path: batched scoring (build_eval_step) and greedy serving
+# (ServeEngine) at the full width of each config, weights random from the
+# seed; every family of the repo: SSM, dense, MoE, the RG-LRU hybrid,
+# audio, MLA with MTP, VLM.  One row an architecture:
+# - score: recurrentgemma's S 4096 so that its 2048 window binds, hubert's
+#   frames, internvl's 256 patches + 2048 text tokens;
+# - depth: deepseek-v3-671b keeps its 3 dense layers and one MoE layer
+#   (29.4 GiB in bf16), internvl2-76b 8 of its 80 (16.7 GiB); every other
+#   config runs all its layers;
+# - profile: the two full-depth decoders of the MoE and hybrid families
+#   only (the smoke's time, PERF.md §2; mamba2's and gemma-2b's scoring
+#   profiles are in PERF.md §5);
+# - serve: every decoder, in its config's bf16.  Serving holds ragged
+#   decoding to independent decoding token for token at f32 weights
+#   (ragged); in bf16 the batch size changes cuBLAS's reduction order and
+#   the logits' bf16 rounding, so greedy ties may flip: bf16 serving is
+#   timed, not compared.  Full-width f32 serving and bf16 independent
+#   decoding went for the smoke's time (deepseek-moe-16b alone would take
+#   61 GiB in f32).  The reference holds ragged == independent for
+#   deepseek-v3-671b (tests/test_serving.py:47), the CPU tests for the
+#   others;
+# - decode: phase 12's decode by replay against the kernel forward, f32,
+#   full width at a cut depth: 4 (deepseek-v3: its 3 dense layers and one
+#   MoE layer), 3 for recurrentgemma (one whole (rec, rec, local_attn)
+#   group) over T 2112, so that its window-sized rolling cache (2048)
+#   wraps 64 times;
+# - dropless: MoE decodes by replay at a capacity that drops nothing
+#   (capacity_factor E / top_k makes the capacity every token), as the
+#   reference's parity test runs (its reduced config's factor 8): at the
+#   configs' 1.25 the forward's experts drop entries that single-token
+#   decode steps keep, a difference of semantics, not of arithmetic;
+# - agree: depth 2, deepseek-v3 4 (3 dense layers and one MoE layer, +
+#   MTP), recurrentgemma 3 (one whole group); mamba2's S 520 is 3 SSD
+#   chunks;
+# - narrow: the CUDA-against-CPU case runs at full width where the CPU
+#   child can carry it; these three keep their heads, head dims, MLA
+#   ranks, window and vocab but narrow d_model, d_ff and the experts (the
+#   CPU child's time and memory: deepseek-v3 at depth 4 is 63 GB in f32).
+LLM = {
+    "mamba2-370m": LLMRow(score=(4, 2048), agree=(2, 520), kernel="ssd_chunk",
+                          serve=True, decode=(4, 64), ragged=True),
+    "gemma-2b": LLMRow(score=(2, 2048), agree=(2, 256), serve=True,
+                       decode=(4, 64), ragged=True),
+    "deepseek-moe-16b": LLMRow(score=(2, 2048), agree=(2, 256), profile=True,
+                               serve=True, decode=(4, 64), dropless=True,
+                               ragged=True),
+    "recurrentgemma-9b": LLMRow(
+        score=(2, 4096), agree=(3, 256), profile=True, serve=True,
+        decode=(3, 2048 + 64), ragged=True,
+        narrow=dict(d_model=1024, d_ff=3072, rglru=dict(lru_width=1024))),
+    "hubert-xlarge": LLMRow(score=(2, 4096), agree=(2, 256)),
+    "deepseek-v3-671b": LLMRow(
+        score=(2, 2048), agree=(4, 128), depth=4, serve=True, decode=(4, 64),
+        dropless=True, ragged=True,
+        narrow=dict(d_model=1024, d_ff=512, moe=dict(
+            n_routed_experts=16, moe_d_ff=512, dense_d_ff=2048))),
+    "internvl2-76b": LLMRow(score=(2, 256 + 2048), agree=(2, 32 + 128),
+                            depth=8, decode=(4, 64), patches=32,
+                            narrow=dict(d_model=2048, d_ff=7168)),
+}
 SERVE_PROMPTS, SERVE_NEW = (4, 12), 16          # examples/serve_batched.py
 RAGGED_LENS = (5, 11, 23)
-# serving holds ragged decoding to independent decoding token for token at
-# f32 weights; in the configs' own bf16 the batch size changes cuBLAS's
-# reduction order and the logits' bf16 rounding, so greedy ties may flip:
-# bf16 serving is timed and its equality reported, not held
-SERVE_DTYPE = "float32"
-LLM_DECODE_DEPTH, LLM_DECODE_T, LLM_DECODE_RTOL = 4, 64, 2e-4
-LLM_AGREE_DEPTH, LLM_AGREE_LOSS = 2, 1e-4
-LLM_AGREE_SEQ = {"mamba2-370m": 520, "gemma-2b": 256}   # 520: 3 SSD chunks
+LLM_DECODE_RTOL = 2e-4
+LLM_AGREE_LOSS = 1e-4
 # examples/federated_llm_torch.py's run (4 organisations, 2 rounds): its
 # update count, which tests/test_torch_train.py finds equal for the same
 # specs and rounds against examples/federated_llm.py (the schedule does not
 # depend on the width)
 FED_LLM_UPDATES = 16
+# that run's mamba2-370m at full width cut to 12 of its 48 layers (the
+# smoke's time; the schedule, the folds and the updates do not depend on
+# depth)
+FED_LLM_DEPTH = 12
 KERNEL_RTOL = 2e-5      # f32 kernel vs plain at path shapes, x max(1, |plain|)
 # ssd_chunk is also held against the same function in f64: the kernel may
 # sit at most SSD_F64_FACTOR times as far from it as its f32 plain version
@@ -1080,7 +1161,7 @@ def check_ssd(dev, gen):
 
     ssm = get_config("mamba2-370m").ssm
     chunk = ssm.chunk_size
-    b, s = LLM_SCORING["mamba2-370m"]
+    b, s = LLM["mamba2-370m"].score
     err, worst, path = 0.0, 0.0, None
     for seq in (s, 2000):                       # 2000: the padding path
         scan = ssd_scan_inputs(gen, b, seq)
@@ -1151,7 +1232,7 @@ def check_local_attn(dev, gen):
 
     d = 256
     scale = d ** -0.5
-    b, s = LLM_SCORING["gemma-2b"]
+    b, s = LLM["gemma-2b"].score
     err = 0.0
     # gemma-2b (H 8, KV 1) in bf16 and f32; RecurrentGemma's local window
     for h, seq, window, dtype in ((8, s, 0, torch.bfloat16),
@@ -3009,38 +3090,52 @@ def merged_hists(dump) -> dict:
 
 
 def cpu_child(out_dir):
-    """The CPU child's job (``start_cpu_child``): the CPU halves of three
-    card-against-CPU checks, one after the other, each result written to
-    ``out_dir``: phase 7's sharded sim at hidden 16 (``sharded.json``),
-    phase 9's telemetry sim at hidden 16 (``telemetry.json``: its stats
-    and deterministic histograms) and phase 12's LLM gradients
+    """The CPU child's job (``CpuChild``): the CPU halves of three
+    card-against-CPU checks, one after the other, in the order the main
+    process needs them, each result written to ``out_dir`` whole (a
+    temporary name, then a rename): phase 12's LLM gradients
     (``grads_<arch>.pt``: the loss and every leaf's gradient, the plain
-    VJPs)."""
+    VJPs), then phase 7's sharded sim at hidden 16 (``sharded.json``) and
+    phase 9's telemetry sim at hidden 16 (``telemetry.json``: its stats and
+    deterministic histograms), both checked at the end."""
     import torch
 
     sys.path.insert(0, str(REPO / "src"))
     torch.set_num_threads(2)
     out_dir = Path(out_dir)
-    (out_dir / "sharded.json").write_text(json.dumps(sharded_sim16("cpu")))
+
+    def publish(name, write):
+        part = out_dir / f"{name}.part"
+        write(part)
+        os.replace(part, out_dir / name)
+
+    for arch in LLM:
+        t0 = time.perf_counter()
+        cfg, model, params, batch = llm_agree_case(arch)
+        loss, grads = llm_loss_grads(model, cfg, params, batch)
+        result = {"loss": loss, "grads": grads,
+                  "wall_s": time.perf_counter() - t0}
+        publish(f"grads_{arch}.pt", lambda f: torch.save(result, f))
+    sharded = json.dumps(sharded_sim16("cpu"))
+    publish("sharded.json", lambda f: f.write_text(sharded))
     t0 = time.perf_counter()
     fed = threaded_fed("cpu", 16, runtime="sim", telemetry=True,
                        **TELEMETRY_SIM)
     stats = fed.run(rounds=MAIN_PATH["rounds"])
     hists = deterministic_hists(merged_hists(fed.store.telemetry_dump()))
-    (out_dir / "telemetry.json").write_text(json.dumps(
-        {"stats": stats, "hists": hists,
-         "wall_s": time.perf_counter() - t0}))
-    for arch in LLM_ARCHS:
-        cfg, model, params, batch = llm_agree_case(arch)
-        loss, grads = llm_loss_grads(model, cfg, params, batch)
-        torch.save({"loss": loss, "grads": grads},
-                   out_dir / f"grads_{arch}.pt")
+    telemetry = json.dumps({"stats": stats, "hists": hists,
+                            "wall_s": time.perf_counter() - t0})
+    publish("telemetry.json", lambda f: f.write_text(telemetry))
+
+
+CHILD_WAIT_S = 900
 
 
 class CpuChild:
     """``cpu_child`` in a process of its own (two CPU threads, no card),
     started before phase 7, so its minutes on the CPU overlap the phases
-    on the card; ``result(name)`` waits for it and reads one result."""
+    on the card; ``result(name)`` and ``tensors(name)`` wait for one
+    result (up to CHILD_WAIT_S from the call) and read it."""
 
     def __init__(self):
         import tempfile
@@ -3057,12 +3152,16 @@ class CpuChild:
             stderr=self._err)
 
     def _done(self, path: Path) -> Path:
-        try:
-            self.proc.wait(timeout=900)
-        except subprocess.TimeoutExpired:
-            self.close()
-        require(self.proc.returncode == 0 and path.exists(),
-                f"the CPU child failed (exit {self.proc.returncode}): "
+        deadline = time.monotonic() + CHILD_WAIT_S
+        while not path.exists() and self.proc.poll() is None:
+            if time.monotonic() > deadline:     # stopped; its stderr kept
+                self.proc.kill()
+                self.proc.wait(10.0)
+                break
+            time.sleep(0.5)
+        require(path.exists() and self.proc.returncode in (None, 0),
+                f"the CPU child failed (exit {self.proc.returncode}, "
+                f"{path.name} {'written' if path.exists() else 'missing'}): "
                 f"{(Path(self._dir.name) / 'stderr').read_text()[-2000:]}")
         return path
 
@@ -3692,21 +3791,69 @@ def phase_telemetry_scenario(dev) -> tuple[dict, tuple]:
 
 
 # ----------------------------------------------------------------- phase 11
-def llm_model(arch, dev, dtype=None, depth=None, generator=None):
-    """(cfg, model, params) of ``arch`` at full width, weights random from
-    the seed: drawn on the card (a CUDA generator) unless ``generator``."""
-    import torch
+def llm_config(arch, dtype=None, depth=None, narrow=None):
+    """``arch``'s config at full width, its depth cut to ``depth`` (or
+    its row's cut in ``LLM``, or none), in ``dtype``, narrowed by ``narrow`` (fields,
+    sub-configs as dicts)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    from repro_torch.models.model import build_model
 
     cfg = get_config(arch)
+    depth = depth or LLM[arch].depth
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
     if depth is not None:
         cfg = cfg.replace(n_layers=depth)
+    for key, val in (narrow or {}).items():
+        if isinstance(val, dict):
+            val = dataclasses.replace(getattr(cfg, key), **val)
+        cfg = cfg.replace(**{key: val})
+    return cfg
+
+
+def llm_model(arch, dev, dtype=None, depth=None, generator=None, narrow=None):
+    """(cfg, model, params) of ``arch`` (``llm_config``), weights random
+    from the seed: drawn on the card (a CUDA generator) unless
+    ``generator``."""
+    import torch
+    from repro_torch.models.model import build_model
+
+    cfg = llm_config(arch, dtype, depth, narrow)
     model = build_model(cfg)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
     return cfg, model, model.init(gen, dev)
+
+
+def llm_batch(cfg, rng, b, seq, n_patch=None):
+    """A numpy batch of the family's kind, ``seq`` positions a row: tokens,
+    audio frames (``audio_batch``) or ``n_patch`` patches (the config's
+    own count unless given) then text tokens (``vlm_batch``)."""
+    from repro_torch.data.lm_synth import audio_batch, lm_batch, vlm_batch
+
+    if cfg.family == "audio":
+        return audio_batch(rng, b, seq, cfg.frontend.embed_dim,
+                           cfg.vocab_size)
+    if cfg.family == "vlm":
+        return vlm_batch(rng, b, seq, n_patch or cfg.frontend.tokens_per_sample,
+                         cfg.frontend.embed_dim, cfg.vocab_size)
+    return lm_batch(rng, b, seq, cfg.vocab_size)
+
+
+def kernel_blocks(cfg) -> int:
+    """Launches of the path's kernel in one forward (one backward likewise):
+    one ``ssd_chunk`` a layer, one ``local_attn`` an attention-bearing
+    block walked, the MTP block's included."""
+    from repro_torch.models.blocks import attention_blocks
+
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    return attention_blocks(cfg) + cfg.mtp_depth
+
+
+def ce_metrics(metrics) -> dict:
+    """The cross entropies a family's loss reports (``ce``, ``mtp_ce``)."""
+    return {k: metrics[k].item() for k in ("ce", "mtp_ce") if k in metrics}
 
 
 def score(dev, arch) -> dict:
@@ -3714,7 +3861,6 @@ def score(dev, arch) -> dict:
     set to 0 just before each run and read just after."""
     import numpy as np
     import torch
-    from repro_torch.data.lm_synth import lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.local_attn import ops as attn_ops
     from repro_torch.training.train_step import build_eval_step
@@ -3724,14 +3870,15 @@ def score(dev, arch) -> dict:
     torch.cuda.synchronize()
     print(f"[llm] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.dtype}) initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
-    b, seq = LLM_SCORING[arch]
-    batch = lm_batch(np.random.default_rng(0), b, seq, cfg.vocab_size)
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    b, seq = LLM[arch].score
+    batch = llm_batch(cfg, np.random.default_rng(0), b, seq)
     eval_step = build_eval_step(model, cfg)
     want = {name: 0 for name in launch_counts()}
-    want[LLM_KERNEL[arch]] = cfg.n_layers
+    want[LLM[arch].kernel] = kernel_blocks(cfg)
     # every local_attn launch of bf16 scoring on the tensor-core route
-    want_tc = cfg.n_layers if LLM_KERNEL[arch] == "local_attn" else 0
+    want_tc = want["local_attn"]
     first = None
     for run in ("cold", "warm"):
         torch.cuda.synchronize()
@@ -3744,33 +3891,39 @@ def score(dev, arch) -> dict:
         counts = launch_counts()
         tc = attn_ops.launches_tc
         peak = torch.cuda.max_memory_allocated() / 2**30
+        ces = ce_metrics(out)
         print(f"[llm] score {arch} batch {b} x {seq} ({run}): loss {loss:.6f} "
-              f"(ln V = {math.log(cfg.vocab_size):.6f}), {wall * 1e3:.1f} ms "
-              f"wall, {b * seq / wall:.0f} tokens/s, peak memory {peak:.2f} "
-              f"GiB, launches {json.dumps(counts)}, local_attn on the "
-              f"tensor cores {tc}")
+              f"{json.dumps(ces)} (ln V = {math.log(cfg.vocab_size):.6f}), "
+              f"{wall * 1e3:.1f} ms wall, {b * seq / wall:.0f} tokens/s, "
+              f"peak memory {peak:.2f} GiB, launches {json.dumps(counts)}, "
+              f"local_attn on the tensor cores {tc}")
         require(counts == want, f"{arch} scoring launched {counts}, expected "
                                 f"{want}")
         require(tc == want_tc, f"{arch} scoring: {tc} local_attn launches on "
                                f"the tensor-core route, expected {want_tc}")
-        require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size))
-                < 2.0, f"{arch} loss {loss} is not within 2 of ln V")
+        # each cross entropy within 2 of ln V; the loss adds MoE's aux loss
+        # and 0.3 x the MTP term
+        require(math.isfinite(loss) and all(
+            abs(v - math.log(cfg.vocab_size)) < 2.0 for v in ces.values()),
+            f"{arch} loss {loss}, {ces}: a cross entropy is not within 2 "
+            "of ln V")
         first = first or dict(counts, local_attn_tc=tc)
-    device_profile(f"llm {arch}", lambda: eval_step(params, batch))
+    if LLM[arch].profile:
+        device_profile(f"llm {arch}", lambda: eval_step(params, batch))
     return first
 
 
-def serve(dev, arch, dtype=None):
+def serve(dev, arch):
     """Greedy ``ServeEngine.generate`` and ``generate_ragged`` at full width
-    and depth (``dtype`` weights, the config's own when None), no kernel
-    launched; ragged decoding is held to independent decoding at
-    ``SERVE_DTYPE`` and reported in any other dtype."""
+    in the config's bf16 (its depth cut as in ``LLM``), no kernel
+    launched (ragged equality is held in f32 at the decode depth, phase
+    12)."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.engine import ServeEngine
 
-    cfg, model, params = llm_model(arch, dev, dtype=dtype)
+    cfg, model, params = llm_model(arch, dev)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, SERVE_PROMPTS).astype(np.int32)
     reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -3787,112 +3940,183 @@ def serve(dev, arch, dtype=None):
     counts = launch_counts()
     require(out.shape == (SERVE_PROMPTS[0], SERVE_NEW) and ((out >= 0) & (
         out < cfg.vocab_size)).all(), f"{arch}: generate gave {out.shape}")
+    require(ragged.shape == (len(RAGGED_LENS), SERVE_NEW) and (
+        (ragged >= 0) & (ragged < cfg.vocab_size)).all(),
+        f"{arch}: generate_ragged gave {ragged.shape}")
     require(all(n == 0 for n in counts.values()),
             f"{arch}: serving launched kernels {counts}; the reference's "
             "decode reaches neither")
-    differ = []
-    for i, r in enumerate(reqs):
-        solo = eng.generate(r[None], SERVE_NEW)[0]
-        if not (ragged[i] == solo).all():
-            differ.append(i)
-            print(f"[llm] serve {arch} ({cfg.dtype}): ragged request {i} "
-                  f"{ragged[i].tolist()} != independent {solo.tolist()}")
-    require(cfg.dtype != SERVE_DTYPE or not differ,
-            f"{arch}: ragged requests {differ} differ from independent "
-            "decoding")
-    verdict = ("equal to independent decoding" if not differ else
-               f"requests {differ} differ from independent decoding (not "
-               f"held in {cfg.dtype})")
-    print(f"[llm] serve {arch} ({cfg.dtype}): generate {out.shape[0]}x"
-          f"{SERVE_PROMPTS[1]} prompts -> {SERVE_NEW} new in {t_gen:.3f} s "
-          f"({out.size / t_gen:.1f} new tokens/s, prefill by replay "
-          f"included); ragged {list(RAGGED_LENS)} -> {SERVE_NEW} new in "
-          f"{t_rag:.3f} s ({ragged.size / t_rag:.1f} new tokens/s), "
-          f"{verdict}; launches {json.dumps(counts)}; sample "
-          f"{out[0, :8].tolist()}")
+    print(f"[llm] serve {arch} ({cfg.n_layers} layers, {cfg.dtype}): "
+          f"generate {out.shape[0]}x{SERVE_PROMPTS[1]} prompts -> "
+          f"{SERVE_NEW} new in {t_gen:.3f} s ({out.size / t_gen:.1f} new "
+          f"tokens/s, prefill by replay included); ragged "
+          f"{list(RAGGED_LENS)} -> {SERVE_NEW} new in {t_rag:.3f} s "
+          f"({ragged.size / t_rag:.1f} new tokens/s); launches "
+          f"{json.dumps(counts)}; sample {out[0, :8].tolist()}")
 
 
 def phase_llm(dev) -> dict:
     import torch
 
     counts = {}
-    for arch in LLM_ARCHS:
+    for arch in LLM:
         for name, n in score(dev, arch).items():
             counts[name] = counts.get(name, 0) + n
         torch.cuda.empty_cache()
     print(f"[llm] card: {card_line()}")
-    for arch in LLM_ARCHS:
-        for dtype in (SERVE_DTYPE, None):       # None: the config's own
-            serve(dev, arch, dtype)
-            torch.cuda.empty_cache()
+    for arch in (a for a, row in LLM.items() if row.serve):
+        serve(dev, arch)
+        torch.cuda.empty_cache()
     return counts
 
 
-def phase_llm_agree(dev, child):
+def decode_by_replay(dev, arch):
     """Decode by replay (no kernel) against the kernel forward on the card,
-    in f32 at full width and cut depth; and the CUDA forward against the
-    CPU forward (plain versions) from the same weights."""
+    f32 at full width and the decode depth; then, where ``ragged``, ragged
+    against independent decoding on the same weights."""
     import numpy as np
     import torch
-    from repro_torch.data.lm_synth import lm_batch
-    from repro_torch.training.train_step import build_eval_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    row = LLM[arch]
+    depth, T = row.decode
+    moe = llm_config(arch).moe
+    narrow = ({"moe": {"capacity_factor": moe.n_routed_experts / moe.top_k}}
+              if row.dropless else None)
+    cfg, model, params = llm_model(arch, dev, dtype="float32", depth=depth,
+                                   narrow=narrow)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, T)), device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = model.forward(params, tokens=toks)
+        caches = model.init_caches(2, T, torch.float32, dev)
+        reset_launch_counts()
+        err = torch.zeros((), device=dev)
+        for t in range(T):
+            lg, caches = model.decode_step(params, caches,
+                                           toks[:, t:t + 1], t)
+            err = torch.maximum(err, (lg[:, 0] - full[:, t]).abs().max())
+        err = err.item()
+    counts = launch_counts()
+    lim = LLM_DECODE_RTOL * max(1.0, full.abs().max().item())
+    leaves = sorted({tuple(c.shape) for c in tree_leaves(caches)})
+    dropless = (f", capacity_factor {cfg.moe.capacity_factor:g}"
+                if narrow else "")
+    print(f"[agree] {arch} f32, depth {depth}{dropless}, T {T}: decode by "
+          f"replay vs the kernel forward, max abs err {err:.3e} (limit "
+          f"{lim:.3e}), "
+          f"{time.perf_counter() - t0:.1f} s; cache leaves {leaves}")
+    require(err <= lim, f"{arch}: decode and forward differ by {err}")
+    require(all(n == 0 for n in counts.values()),
+            f"{arch}: decode launched kernels {counts}")
+    if not row.ragged:
+        return
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in RAGGED_LENS]
+    eng = ServeEngine(model, params, max_len=96)
+    t0 = time.perf_counter()
+    ragged = eng.generate_ragged(reqs, SERVE_NEW)
+    differ = [i for i, r in enumerate(reqs)
+              if not (ragged[i] == eng.generate(r[None], SERVE_NEW)[0]).all()]
+    print(f"[agree] {arch} f32, depth {depth}: ragged {list(RAGGED_LENS)} -> "
+          f"{SERVE_NEW} new, independent decoding "
+          f"{'equal' if not differ else f'different in requests {differ}'}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(not differ, f"{arch}: ragged requests {differ} differ from "
+                        "independent decoding in f32")
+
+
+class AgreeCases:
+    """Phase 12's CUDA-against-CPU cases, made in a thread of its own
+    started before phase 11, so that they overlap the phases on the card:
+    for every ``LLM`` row, ``llm_agree_case`` drawn on the CPU (seconds
+    a billion parameters) and the CPU child's loss and gradients read back
+    (gigabytes); ``get(arch)`` waits for one.  ``drawn_s``, ``read_s``
+    and ``waited_s`` are the seconds the thread drew, the seconds it read
+    (waits for the child included) and the seconds ``get`` waited: done in
+    the phase instead, the cases would cost it about drawn_s + read_s."""
+
+    def __init__(self, child):
+        import threading
+
+        self._child = child
+        self._cases, self._error = {}, None
+        self.drawn_s = self.read_s = self.waited_s = 0.0
+        self._ready = threading.Condition()
+        self._thread = threading.Thread(target=self._make, daemon=True)
+        self._thread.start()
+
+    def _make(self):
+        try:
+            for arch in LLM:
+                t0 = time.perf_counter()
+                case = llm_agree_case(arch)
+                t1 = time.perf_counter()
+                case = (*case, self._child.tensors(f"grads_{arch}"))
+                self.drawn_s += t1 - t0
+                self.read_s += time.perf_counter() - t1
+                with self._ready:
+                    self._cases[arch] = case
+                    self._ready.notify_all()
+        except Exception as exc:        # handed to the waiting phase
+            with self._ready:
+                self._error = exc
+                self._ready.notify_all()
+
+    def get(self, arch):
+        """(cfg, model, CPU params, batch, the child's result) of ``arch``."""
+        t0 = time.perf_counter()
+        with self._ready:
+            self._ready.wait_for(lambda: arch in self._cases or self._error)
+            self.waited_s += time.perf_counter() - t0
+            if arch not in self._cases:
+                raise self._error
+            return self._cases.pop(arch)
+
+
+def phase_llm_agree(dev, cases):
+    """Decode by replay against the kernel forward, and ragged decoding
+    (``decode_by_replay``); the CUDA loss and gradients against the CPU
+    child's from the same weights (``cases``, an ``AgreeCases``; the plain
+    versions in the child)."""
+    import torch
     from repro_torch.utils.tree import tree_map
 
-    for arch in LLM_ARCHS:
-        cfg, model, params = llm_model(arch, dev, dtype="float32",
-                                       depth=LLM_DECODE_DEPTH)
-        toks = torch.as_tensor(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (2, LLM_DECODE_T)), device=dev)
-        with torch.no_grad():
-            full, _ = model.forward(params, tokens=toks)
-            caches = model.init_caches(2, LLM_DECODE_T, torch.float32, dev)
-            err = 0.0
-            for t in range(LLM_DECODE_T):
-                lg, caches = model.decode_step(params, caches,
-                                               toks[:, t:t + 1], t)
-                err = max(err, (lg[:, 0] - full[:, t]).abs().max().item())
-        lim = LLM_DECODE_RTOL * max(1.0, full.abs().max().item())
-        print(f"[agree] {arch} f32, depth {LLM_DECODE_DEPTH}, T "
-              f"{LLM_DECODE_T}: decode by replay vs the kernel forward, max "
-              f"abs err {err:.3e} (limit {lim:.3e})")
-        require(err <= lim, f"{arch}: decode and forward differ by {err}")
-        del params, caches
+    for arch in (a for a, row in LLM.items() if row.decode):
+        decode_by_replay(dev, arch)
         torch.cuda.empty_cache()
-
-        cfg, model, cpu_params, batch = llm_agree_case(arch)
-        seq = LLM_AGREE_SEQ[arch]
-        eval_step = build_eval_step(model, cfg)
-        t0 = time.perf_counter()
-        cpu_loss = eval_step(cpu_params, batch)["loss"].item()
-        t_cpu = time.perf_counter() - t0
+    for arch in LLM:
+        cfg, model, cpu_params, batch, cpu = cases.get(arch)
         gpu_params = tree_map(lambda x: x.to(dev), cpu_params)
         del cpu_params
-        gpu_loss = eval_step(gpu_params, batch)["loss"].item()
-        gap = abs(gpu_loss - cpu_loss)
-        print(f"[agree] {arch} f32, depth {LLM_AGREE_DEPTH}, batch 2 x {seq}: "
-              f"loss CUDA {gpu_loss:.7f} vs CPU {cpu_loss:.7f}, gap "
-              f"{gap:.3e} (limit {LLM_AGREE_LOSS}); CPU forward {t_cpu:.1f} s")
-        require(gap <= LLM_AGREE_LOSS, f"{arch}: CUDA and CPU losses differ "
-                                       f"by {gap}")
-        check_llm_grads(dev, arch, model, cfg, gpu_params, batch,
-                        child.tensors(f"grads_{arch}"))
-        del gpu_params
+        check_llm_grads(dev, arch, model, cfg, gpu_params, batch, cpu)
+        del gpu_params, cpu
         torch.cuda.empty_cache()
+    print(f"[agree] the CUDA-against-CPU cases, made in a thread beside "
+          f"phases 11-12: drawn in {cases.drawn_s:.1f} s, the child's "
+          f"results read in {cases.read_s:.1f} s (its waits included); this "
+          f"phase waited {cases.waited_s:.1f} s for them")
 
 
 def llm_agree_case(arch):
     """The CUDA-against-CPU case of phase 12: f32 parameters at full width
-    and depth LLM_AGREE_DEPTH drawn on the CPU from seed 3, and the batch
-    (2 x LLM_AGREE_SEQ); the same in this process and the CPU child."""
+    (or the row's ``narrow``) and the row's ``agree`` depth drawn on the CPU
+    from seed 3, and the batch (2 x its ``agree`` S); the same in this
+    process and the CPU child."""
     import numpy as np
     import torch
-    from repro_torch.data.lm_synth import lm_batch
 
+    row = LLM[arch]
+    depth, seq = row.agree
     cfg, model, params = llm_model(
-        arch, "cpu", dtype="float32", depth=LLM_AGREE_DEPTH,
-        generator=torch.Generator().manual_seed(3))
-    batch = lm_batch(np.random.default_rng(2), 2, LLM_AGREE_SEQ[arch],
-                     cfg.vocab_size)
+        arch, "cpu", dtype="float32", depth=depth,
+        generator=torch.Generator().manual_seed(3), narrow=row.narrow)
+    batch = llm_batch(cfg, np.random.default_rng(2), 2, seq,
+                      n_patch=row.patches)
     return cfg, model, params, batch
 
 
@@ -3904,29 +4128,41 @@ def llm_loss_grads(model, cfg, params, batch):
 
     live = tree_map(lambda x: x.detach().requires_grad_(), params)
     loss, _ = loss_for_batch(model, cfg, live, batch)
-    return loss.item(), list(torch.autograd.grad(loss, tree_leaves(live)))
+    return loss.item(), list(torch.autograd.grad(
+        loss, tree_leaves(live), allow_unused=True, materialize_grads=True))
 
 
 def check_llm_grads(dev, arch, model, cfg, params, batch, cpu):
-    """The CUDA gradients (the backward kernels, one launch a layer)
-    against the CPU child's (the plain VJPs) from the same weights and
-    batch: every leaf within LLM_GRAD_RTOL x max(1, max|g_cpu|)."""
+    """The CUDA loss and gradients (the backward kernels, one launch a
+    layer or attention block) against the CPU child's (the plain VJPs)
+    from the same weights and batch: the loss within LLM_AGREE_LOSS, every
+    leaf within LLM_GRAD_RTOL x max(1, max|g_cpu|)."""
     import torch
     from repro_torch.kernels import reset_launch_counts
 
-    kernel = LLM_KERNEL[arch]
+    kernel = LLM[arch].kernel
     torch.cuda.synchronize()
     reset_launch_counts()
     loss, grads = llm_loss_grads(model, cfg, params, batch)
     torch.cuda.synchronize()
     bwd = path_counts()[f"{kernel}_bwd"]
-    require(bwd == cfg.n_layers, f"{arch}: {bwd} {kernel} backward "
-                                 f"launches, expected {cfg.n_layers}")
+    gap = abs(loss - cpu["loss"])
+    row = LLM[arch]
+    narrow = f", narrowed {json.dumps(row.narrow)}" if row.narrow else ""
+    print(f"[agree] {arch} f32, depth {cfg.n_layers}{narrow}, batch 2 x "
+          f"{row.agree[1]}: loss CUDA {loss:.7f} vs CPU "
+          f"{cpu['loss']:.7f}, gap {gap:.3e} (limit {LLM_AGREE_LOSS})")
+    require(gap <= LLM_AGREE_LOSS, f"{arch}: CUDA and CPU losses differ by "
+                                   f"{gap}")
+    require(bwd == kernel_blocks(cfg), f"{arch}: {bwd} {kernel} backward "
+                                       f"launches, expected "
+                                       f"{kernel_blocks(cfg)}")
     require(len(grads) == len(cpu["grads"]), f"{arch}: {len(grads)} leaves "
             f"on the card, {len(cpu['grads'])} on the CPU")
     worst = 0.0
     for i, (g, w) in enumerate(zip(grads, cpu["grads"], strict=True)):
-        err = (g.cpu() - w).abs().max().item()
+        w = w.to(g.device)             # f32 on either side: the same sums
+        err = (g - w).abs().max().item()
         lim = LLM_GRAD_RTOL * max(1.0, w.abs().max().item())
         require(err <= lim, f"{arch}: leaf {i} of the gradient, CUDA vs CPU "
                             f"max abs err {err} > {lim}")
@@ -3934,8 +4170,8 @@ def check_llm_grads(dev, arch, model, cfg, params, batch, cpu):
     print(f"[agree] {arch} f32, depth {cfg.n_layers}: gradients CUDA vs CPU "
           f"(the child's plain VJPs), {len(grads)} leaves, worst max abs "
           f"err {worst:.3f} of its limit (LLM_GRAD_RTOL {LLM_GRAD_RTOL} x "
-          f"max(1, max|g_cpu|)); losses {loss:.7f} / {cpu['loss']:.7f}; "
-          f"{bwd} {kernel} backward launches")
+          f"max(1, max|g_cpu|)); {bwd} {kernel} backward launches; the CPU "
+          f"child's case took {cpu['wall_s']:.1f} s")
 
 
 # ----------------------------------------------------------------- phase 12
@@ -4207,7 +4443,7 @@ def train_steps(dev, arch):
     opt = adamw(TRAIN_LR, moment_dtype=getattr(torch, TRAIN_MOMENTS[arch]))
     step = build_train_step(model, cfg, opt)
     state = TrainState(params, opt.init(params))
-    kernel = LLM_KERNEL[arch]
+    kernel = LLM[arch].kernel
     want = {name: 0 for name in path_counts()}
     want[kernel], want[f"{kernel}_bwd"] = 2 * cfg.n_layers, cfg.n_layers
     if kernel == "local_attn":
@@ -4301,10 +4537,11 @@ def anchored_step(dev, init, state, batch):
 
 def federated_llm(dev) -> dict:
     """``examples/federated_llm_torch.py``'s ``federate`` with mamba2-370m
-    at full width and depth (4 organisations, 2 rounds), counters set to 0
-    just before and read just after, its folds recorded: the eval loss
-    falls, the update count is FED_LLM_UPDATES, the fold launches are the
-    ones the recorded folds imply, and the global model left its init."""
+    at full width and FED_LLM_DEPTH (4 organisations, 2 rounds), counters
+    set to 0 just before and read just after, its folds recorded: the eval
+    loss falls, the update count is FED_LLM_UPDATES, the fold launches are
+    the ones the recorded folds imply, and the global model left its
+    init."""
     import importlib.util
 
     import torch
@@ -4320,8 +4557,9 @@ def federated_llm(dev) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     with recording_folds() as folds:
-        out = example.federate("mamba2-370m", cfg=get_config("mamba2-370m"),
-                               device=dev)
+        out = example.federate(
+            "mamba2-370m", device=dev,
+            cfg=get_config("mamba2-370m").replace(n_layers=FED_LLM_DEPTH))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = path_counts()
@@ -4330,8 +4568,8 @@ def federated_llm(dev) -> dict:
     moved = any(bool(torch.any(a != b)) for a, b in zip(
         tree_leaves(out["fed"].store.params("global")),
         tree_leaves(out["init_params"]), strict=True))
-    print(f"[train] federated mamba2-370m at full width, 4 organisations, 2 "
-          f"rounds: {wall:.1f} s, eval loss {out['loss0']:.6f} -> "
+    print(f"[train] federated mamba2-370m at full width, {FED_LLM_DEPTH} of "
+          f"48 layers, 4 organisations, 2 rounds: {wall:.1f} s, eval loss {out['loss0']:.6f} -> "
           f"{out['loss1']:.6f}, stats {json.dumps(stats)}, {len(folds)} "
           f"folds recorded, fold launches {counts['fedavg_agg']} (implied "
           f"{implied}), global model moved {moved}, launches "
@@ -4424,11 +4662,14 @@ def main() -> int:
         for path, (c, r) in paths.items():
             counts[path], routes[path] = c, r
         mark("telemetry and scenario")
+        # phase 12's CPU weights and the child's gradients, made beside
+        # phases 11 and 12
+        cases = AgreeCases(child)
         counts["llm"] = phase_llm(dev)
         mark("llm")
         phase_agree(dev)
         mark("agree")
-        phase_llm_agree(dev, child)
+        phase_llm_agree(dev, cases)
         mark("llm agree")
         phase_example()
         mark("example")

@@ -7,11 +7,10 @@ cluster and global models; the eval loss of the global model must fall.
 
     PYTHONPATH=src python examples/federated_llm_torch.py [--arch mamba2-370m] [--device cpu]
 
-The port has the dense and SSM families (gemma-2b, mamba2-370m);
-``--arch deepseek-moe-16b`` raises the port's not-ported error (MoE is
-``ROADMAP.md`` §1 item 6.3).  It runs on CUDA (and raises where there is
-none) unless ``--device cpu`` is given; the CPU runs the kernels' plain
-PyTorch versions.
+By default one arch a family, as the reference's default: gemma-2b,
+deepseek-moe-16b and mamba2-370m.  It runs on CUDA (and raises where
+there is none) unless ``--device cpu`` is given; the CPU runs the kernels'
+plain PyTorch versions.
 """
 
 import argparse
@@ -19,7 +18,7 @@ import argparse
 import numpy as np
 import torch
 
-ARCHS = ("gemma-2b", "mamba2-370m")
+ARCHS = ("gemma-2b", "deepseek-moe-16b", "mamba2-370m")
 
 
 def federate(arch: str, n_orgs: int = 4, rounds: int = 2, *, cfg=None,
@@ -84,8 +83,7 @@ def federate(arch: str, n_orgs: int = 4, rounds: int = 2, *, cfg=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="single arch id; default: one per family the port "
-                         "has")
+                    help="single arch id; default: one per family")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)

@@ -2,10 +2,11 @@
 
 ``build_decode_step`` returns the single-token step.  ``ServeEngine`` is
 the example-scale driver: prefill by replaying prompt tokens through the
-decode step (correct for every family, including SSM states), then greedy
-or temperature sampling.  As in the reference, serving runs neither kernel
-of the full-sequence forward: decode attends over the cache with the
-einsum ``_sdpa`` and steps the SSM recurrence.  Greedy decoding matches
+decode step (correct for every family, including SSM and RG-LRU states and
+rolling local caches), then greedy or temperature sampling.  As in the
+reference, serving runs neither kernel of the full-sequence forward: decode
+attends over the cache with the einsum ``_sdpa`` (MLA over its latent
+cache) and steps the SSM and RG-LRU recurrences.  Greedy decoding matches
 the reference token for token; temperature sampling draws from a
 ``torch.Generator`` and does not reproduce JAX's PRNG.
 """
@@ -20,17 +21,20 @@ import torch
 from repro_torch.utils.tree import tree_map
 
 
-def build_decode_step(model, *, rules=None, window_override=None):
+def build_decode_step(model, *, rules=None, window_override=None,
+                      mla_absorb: bool = True):
     @torch.no_grad()
     def decode_step(params, caches, tokens, pos):
         return model.decode_step(params, caches, tokens, pos, rules=rules,
-                                 window_override=window_override)
+                                 window_override=window_override,
+                                 mla_absorb=mla_absorb)
 
     return decode_step
 
 
 def _merge(*xs):
-    # scan-stacked leaves: (layers, 1, ...) -> concat axis 1; else axis 0
+    # scan-stacked leaves: (layers, 1, ...) -> concat axis 1; unrolled
+    # leaves: (1, ...) -> axis 0
     ax = 1 if (xs[0].dim() >= 3 and xs[0].shape[1] == 1) else 0
     return torch.cat(xs, dim=ax)
 
@@ -42,9 +46,10 @@ class ServeEngine:
     max_len: int = 512
     temperature: float = 0.0
     cache_dtype: torch.dtype = torch.float32
+    mla_absorb: bool = True
 
     def __post_init__(self):
-        self._step = build_decode_step(self.model)
+        self._step = build_decode_step(self.model, mla_absorb=self.mla_absorb)
         self.device = self.params["embed"].device
 
     def _tokens(self, a) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Losses: the solar case study's MSE and the text decoders' cross entropy."""
+"""Loss functions for every architecture family + the solar case study."""
 
 from __future__ import annotations
 
@@ -6,8 +6,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md §1, \"The rest "
-              "of the LLM side\": the frontends, MoE and MTP)")
+MTP_WEIGHT = 0.3  # DeepSeek-V3 MTP loss coefficient
 
 
 def softmax_cross_entropy(logits, labels, mask=None):
@@ -24,14 +23,41 @@ def softmax_cross_entropy(logits, labels, mask=None):
 
 
 def loss_for_batch(model, cfg: ModelConfig, params, batch: dict, rules=None):
-    """Family-dispatched loss of a text decoder (dense / ssm).  Returns
-    (loss, metrics dict)."""
-    if cfg.family in ("audio", "vlm") or cfg.mtp_depth:
-        raise NotImplementedError(f"the {cfg.family} loss is {NOT_PORTED}")
+    """Family-dispatched training loss.  Returns (loss, metrics dict)."""
+    if cfg.family == "audio":
+        logits, aux = model.forward(params, embeds=batch["embeds"],
+                                    mask=batch["mask"], rules=rules)
+        ce = softmax_cross_entropy(logits, batch["labels"], batch["mask"])
+        return ce, {"ce": ce}
+
+    if cfg.family == "vlm":
+        logits, aux = model.forward(params, tokens=batch["tokens"],
+                                    embeds=batch["patches"], rules=rules)
+        n_patch = batch["patches"].shape[1]
+        text_logits = logits[:, n_patch:]
+        ce = softmax_cross_entropy(text_logits, batch["labels"])
+        return ce, {"ce": ce}
+
+    # text decoders (dense / moe / ssm / hybrid)
     logits, aux = model.forward(params, tokens=batch["tokens"], rules=rules)
     ce = softmax_cross_entropy(logits, batch["labels"])
     loss = ce + aux["moe_loss"]
-    return loss, {"ce": ce, "moe_loss": aux["moe_loss"]}
+    metrics = {"ce": ce, "moe_loss": aux["moe_loss"]}
+
+    if cfg.mtp_depth:
+        # predict t_{i+2} from h_i and emb(t_{i+1}); valid for the first s-1
+        # positions (the last lacks a t_{i+2} target)
+        labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+        mtp_logits = model.mtp_logits(params, aux["hidden"], labels,
+                                      rules=rules)
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        valid = torch.ones_like(mtp_labels, dtype=torch.bool)
+        valid[:, -1] = False
+        mtp_ce = softmax_cross_entropy(mtp_logits, mtp_labels, valid)
+        loss = loss + MTP_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+
+    return loss, metrics
 
 
 def solar_loss(forecaster, params, batch: dict):

@@ -79,8 +79,11 @@ def build_train_step(model, cfg: ModelConfig, optimizer: Optimizer, *,
     def grads_of(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = loss_for_batch(model, cfg, live, batch, rules)
+        # a leaf the loss does not reach (DeepSeek-V3's router_bias, which
+        # only selects experts) gets zeros, as JAX's gradient gives it
         grads = _refill(params, iter(torch.autograd.grad(
-            loss, tree_leaves(live))))
+            loss, tree_leaves(live), allow_unused=True,
+            materialize_grads=True)))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 

@@ -28,7 +28,14 @@ kernel may sit at most twice as far from the f64 answer as its plain
 version, and the whole chunked scan within 2e-5 * max|f64| of the f64
 scan (the plain oracle ``ssd_chunked`` takes its cumsum in another
 order).  The reduced models' forward on the card matches the CPU
-forward at atol 5e-5.
+forward at atol 5e-5.  The MoE, MLA with MTP, hybrid, audio and VLM
+families (reduced; recurrentgemma at 5 layers): in f32 the loss within
+1e-5 and every gradient leaf within 1e-4 x max(1, max|g_cpu|) of the
+CPU's, one forward and one backward ``local_attn`` launch an attention
+block; in bf16 every launch on the tensor-core route and the cross entropy
+within 2 of ln V; decode by replay within 2e-4 of the kernel forward (the
+rolling cache wrapping at window 8) and ragged decoding equal to
+independent decoding.
 
 The whole-sequence LSTM kernels (``csrc/lstm_seq.cu``): the forward equals
 the chained step kernel bit for bit, and forward and backward sit within
@@ -63,8 +70,10 @@ ready within their cold-start allowance and fold as the in-process
 emulation on the CPU, within 1e-6.
 """
 
+import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,11 +107,14 @@ from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 from repro_torch.kernels.ssd_chunk.ops import ssd_chunked_fused, ssd_intra_chunk
 from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 from repro_torch.configs import get_config, reduced_for_smoke
+from repro_torch.data.lm_synth import audio_batch, lm_batch, vlm_batch
+from repro_torch.models.blocks import attention_blocks
 from repro_torch.models.model import build_model
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models.lstm import SolarForecaster
 from repro_torch.privacy.dp import DPConfig, DPPrivatizer
-from repro_torch.training.losses import solar_loss
+from repro_torch.training.losses import loss_for_batch, solar_loss
 from repro_torch.training.fed_solar import run_fedccl_solar
 from repro_torch.utils.tree import (
     flatten_params,
@@ -839,6 +851,104 @@ def test_llm_forward_on_card_matches_cpu(arch, cuda):
     name = "ssd_chunk" if arch == "mamba2-370m" else "local_attn"
     assert launch_counts()[name] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-5)
+
+
+# ------------------------------ the MoE, MLA, hybrid, audio and VLM families
+FAMILIES = ["deepseek-moe-16b", "deepseek-v3-671b", "recurrentgemma-9b",
+            "hubert-xlarge", "internvl2-76b"]
+
+
+def family_case(arch, dtype="float32"):
+    """A reduced model of ``arch`` (recurrentgemma at 5 layers: a scanned
+    (rec, rec, local_attn) group and an unrolled remainder), its weights
+    drawn on the CPU, and a numpy batch of the family's kind."""
+    cfg = reduced_for_smoke(get_config(arch)).replace(dtype=dtype)
+    if cfg.rglru is not None:
+        cfg = cfg.replace(n_layers=5)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    if cfg.family == "audio":
+        batch = audio_batch(rng, 2, 40, cfg.frontend.embed_dim,
+                            cfg.vocab_size)
+    elif cfg.family == "vlm":
+        batch = vlm_batch(rng, 2, 48, 8, cfg.frontend.embed_dim,
+                          cfg.vocab_size)
+    else:
+        batch = lm_batch(rng, 2, 40, cfg.vocab_size)
+    return cfg, model, params, batch
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_loss_and_gradients_on_card_match_cpu(arch, cuda):
+    """f32: one forward and one backward ``local_attn`` launch an
+    attention block (MTP's included), the loss within 1e-5 and every
+    gradient leaf within 1e-4 x max(1, max|g_cpu|) of the CPU's (a kernel
+    output without ``grad_fn`` would drop its terms)."""
+    cfg, model, params, batch = family_case(arch)
+
+    def loss_grads(p):
+        live = tree_map(lambda x: x.detach().requires_grad_(), p)
+        loss, _ = loss_for_batch(model, cfg, live, batch)
+        return loss.item(), torch.autograd.grad(
+            loss, tree_leaves(live), allow_unused=True,
+            materialize_grads=True)
+
+    want_loss, want = loss_grads(params)
+    reset_launch_counts()
+    got_loss, got = loss_grads(tree_map(lambda x: x.to(cuda), params))
+    n = attention_blocks(cfg) + cfg.mtp_depth
+    assert launch_counts()["local_attn"] == 2 * n
+    assert attn_ops.launches_bwd == n
+    assert abs(got_loss - want_loss) <= 1e-5
+    for g, w in zip(got, want, strict=True):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_bf16_forward_takes_the_tensor_cores(arch, cuda):
+    """bf16 (the configs' dtype): every attention block's launch on the
+    tensor-core route (MLA's qk head dim 48 and v zero-padded to 64), a
+    finite loss within 2 of ln V."""
+    cfg, model, params, batch = family_case(arch, "bfloat16")
+    params = tree_map(lambda x: x.to(cuda), params)
+    reset_launch_counts()
+    with torch.no_grad():
+        loss, met = loss_for_batch(model, cfg, params, batch)
+    n = attention_blocks(cfg) + cfg.mtp_depth
+    assert launch_counts()["local_attn"] == attn_ops.launches_tc == n
+    assert abs(met["ce"].item() - math.log(cfg.vocab_size)) < 2.0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b",
+                                  "recurrentgemma-9b", "internvl2-76b"])
+def test_family_decode_on_card_matches_the_kernel_forward(arch, cuda):
+    """f32: decode by replay (no kernel) against the kernel forward on the
+    card within 2e-4 (recurrentgemma at window 8, so its rolling cache
+    wraps), and ragged decoding equal to independent decoding."""
+    cfg, model, params, _ = family_case(arch)
+    if cfg.rglru is not None:
+        model = build_model(cfg.replace(rglru=dataclasses.replace(
+            cfg.rglru, attn_window=8)))
+    params = tree_map(lambda x: x.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(2)).to(cuda)
+    with torch.no_grad():
+        full, _ = model.forward(params, tokens=toks)
+        caches = model.init_caches(2, 20, torch.float32, cuda)
+        reset_launch_counts()
+        for t in range(20):
+            lg, caches = model.decode_step(params, caches, toks[:, t:t + 1],
+                                           t)
+            assert (lg[:, 0] - full[:, t]).abs().max().item() < 2e-4
+    assert all(n == 0 for n in launch_counts().values())
+    eng = ServeEngine(model, params, max_len=32)
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, cfg.vocab_size, n) for n in (3, 9)]
+    ragged = eng.generate_ragged(reqs, 5)
+    for i, r in enumerate(reqs):
+        assert (ragged[i] == eng.generate(r[None], 5)[0]).all()
 
 
 # ------------------------------------------------- the process server tier

@@ -88,3 +88,54 @@ def test_torch_example_imports_nothing_of_the_reference():
     text = (EXAMPLES / "solar_forecasting_torch.py").read_text()
     assert "import repro." not in text and "from repro." not in text
     assert "jax" not in text
+
+
+# ------------------------------------------------ examples/serve_batched*.py
+def test_serve_batched_torch_matches_the_reference_example(monkeypatch,
+                                                           capsys):
+    """``examples/serve_batched_torch.py --device cpu`` against
+    ``examples/serve_batched.py`` from the same weights (each of the JAX
+    example's draws handed to the port through ``params_from_numpy``): the
+    same archs, prompts and greedy tokens, ragged requests included, and
+    the same lines but for their timings."""
+    import re
+
+    import jax
+    import numpy as np
+
+    import repro.models.model as jax_model
+    import repro_torch.models.model as torch_model
+    from repro_torch.utils.tree import params_from_numpy
+
+    drawn = {}
+    jax_init = jax_model.LanguageModel.init
+
+    def record(self, key, dtype=None):
+        drawn.setdefault(self.cfg.name, []).append(
+            jax.jit(lambda k: jax_init(self, k, dtype))(key))
+        return drawn[self.cfg.name][-1]
+
+    def bridged(self, generator, device=None, dtype=None):
+        return params_from_numpy(jax.tree.map(
+            np.asarray, drawn[self.cfg.name].pop(0)), device)
+
+    monkeypatch.setattr(jax_model.LanguageModel, "init", record)
+    load("serve_batched").main()
+    jax_text = capsys.readouterr().out
+    monkeypatch.setattr(torch_model.LanguageModel, "init", bridged)
+    got = load("serve_batched_torch").main(["--device", "cpu"])
+    torch_text = capsys.readouterr().out
+
+    def untimed(text):
+        return re.sub(r"in +[\d.]+s \( *[\d.]+ tok/s\)", "", text)
+
+    assert untimed(torch_text) == untimed(jax_text)
+    assert list(got) == load("serve_batched").ARCHS + ["ragged"]
+    assert all(v.shape == (4, 48) for k, v in got.items() if k != "ragged")
+    assert got["ragged"].shape == (3, 16)
+
+
+def test_serve_batched_torch_imports_nothing_of_the_reference():
+    text = (EXAMPLES / "serve_batched_torch.py").read_text()
+    assert "import repro." not in text and "from repro." not in text
+    assert "jax" not in text

@@ -250,11 +250,21 @@ def test_bf16_params_round_trip_bit_exactly():
     np.testing.assert_array_equal(emb, np.asarray(jparams["embed"], np.float32))
 
 
-def test_unported_families_raise():
-    for arch in ("deepseek-v3-671b", "recurrentgemma-9b", "hubert-xlarge",
-                 "internvl2-76b", "deepseek-moe-16b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_config_builds(arch):
+    """Every config of the repo builds at full size, schema only (no
+    parameter allocated): the reference's stack layout, and its parameter
+    counts, all and active."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    assert model.layout == jax_build_model(jax_get_config(arch)).layout
+    shapes = model.param_shapes()
+    assert all(t.device.type == "meta" for t in tree_leaves(shapes))
+    for kw in ({"include_embed": True}, {"active_only": True}):
+        assert count_params_analytic(cfg, **kw) == jax_count(
+            jax_get_config(arch), **kw), kw
+    assert sum(t.numel() for t in tree_leaves(shapes)) == \
+        count_params_analytic(cfg, include_embed=True)
 
 
 def test_llm_entry_points_default_to_cuda(monkeypatch):

@@ -1,8 +1,9 @@
 """The port's language-model training against the JAX package, on the CPU.
 
-Both packages run ``reduced_for_smoke`` of every dense and SSM config the
-port builds, in float32, from the same JAX-initialised parameters (the
-weights bridge) and one numpy batch.  On the CPU the port's attention and
+Both packages run ``reduced_for_smoke`` of every LLM config (dense, SSM,
+MoE, MLA with MTP, the RG-LRU hybrid, audio and VLM), in float32, from the
+same JAX-initialised parameters (the weights bridge) and one numpy batch
+of the family's kind.  On the CPU the port's attention and
 SSD run the kernels' plain versions, forward and backward (the backward's
 plain versions are the explicit VJPs in ``kernels/*/ref.py``); the JAX side
 differentiates its jnp paths, as its own training does.  Tolerances: loss,
@@ -41,7 +42,7 @@ from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.core.continual import EWCState
 from repro_torch.core.fedccl import ClusterSpaceConfig, FedCCL, FedCCLConfig
 from repro_torch.core.protocol import ClientSpec
-from repro_torch.data.lm_synth import lm_batch
+from repro_torch.data.lm_synth import audio_batch, lm_batch, vlm_batch
 from repro_torch.kernels.local_attn.ops import LocalAttnFn
 from repro_torch.kernels.local_attn.ref import (
     local_attention_bwd_ref,
@@ -72,8 +73,10 @@ if str(REPO) not in sys.path:
 
 import chip_smoke  # noqa: E402
 
-ARCHS = ["deepseek-7b", "gemma-2b", "glm4-9b", "granite-8b", "mamba2-370m"]
-B, S = 2, 24
+ARCHS = ["deepseek-7b", "gemma-2b", "glm4-9b", "granite-8b", "mamba2-370m",
+         "deepseek-moe-16b", "deepseek-v3-671b", "recurrentgemma-9b",
+         "hubert-xlarge", "internvl2-76b"]
+B, S, N_PATCH = 2, 24, 8
 TOL = 1e-5
 
 
@@ -84,14 +87,42 @@ def pair(request):
     arch = request.param
     jcfg = jax_reduced(jax_get_config(arch))
     jmodel = jax_build_model(jcfg)
-    jparams = jmodel.init(jax.random.key(0))
+    jparams = jax.jit(jmodel.init)(jax.random.key(0))
     cfg = reduced_for_smoke(get_config(arch))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return jmodel, jcfg, jparams, build_model(cfg), cfg, params
 
 
-def np_batch(vocab, seed=1):
-    return lm_batch(np.random.default_rng(seed), B, S, vocab)
+def np_batch(cfg, seed=1):
+    """A batch of the family's kind: tokens, frames with a mask (both rows
+    masking as many frames, so the mean of two one-row microbatches' masked
+    means is the batch's), or patches and tokens."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        batch = audio_batch(rng, B, S, cfg.frontend.embed_dim, cfg.vocab_size,
+                            mask_prob=0.3)
+        batch["mask"][1] = np.roll(batch["mask"][0], 5)
+        return batch
+    if cfg.family == "vlm":
+        return vlm_batch(rng, B, N_PATCH + S, N_PATCH, cfg.frontend.embed_dim,
+                         cfg.vocab_size)
+    return lm_batch(rng, B, S, cfg.vocab_size)
+
+
+def forward_inputs(cfg, batch) -> dict:
+    if cfg.family == "audio":
+        return {"embeds": batch["embeds"], "mask": batch["mask"]}
+    if cfg.family == "vlm":
+        return {"tokens": batch["tokens"], "embeds": batch["patches"]}
+    return {"tokens": batch["tokens"]}
+
+
+def metric_keys(cfg) -> tuple:
+    """The metrics a step of ``cfg`` reports beside the loss."""
+    keys = ("loss", "ce", "grad_norm")
+    if cfg.family in ("audio", "vlm"):
+        return keys
+    return keys + ("moe_loss",) + (("mtp_ce",) if cfg.mtp_depth else ())
 
 
 def jax_batch(batch):
@@ -127,28 +158,39 @@ def port_step_of(model, cfg, params, opt, batch, **kw):
 # ---------------------------------------------------------------- one step
 def test_sgd_step_matches_jax(pair):
     jmodel, jcfg, jparams, model, cfg, params = pair
-    batch = np_batch(cfg.vocab_size)
+    batch = np_batch(cfg)
     jstate, jmet = jax_step_of(jmodel, jcfg, jparams, jopt.sgd(0.05), batch)
     state, met = port_step_of(model, cfg, params, sgd(0.05), batch)
-    assert_metrics_close(met, jmet)
-    assert float(met["moe_loss"]) == 0.0
+    assert set(met) == set(jmet) == set(metric_keys(cfg))
+    assert_metrics_close(met, jmet, metric_keys(cfg))
+    if "moe_loss" in met:
+        assert (float(met["moe_loss"]) > 0.0) == cfg.is_moe
     assert_params_close(state.params, jstate.params)
     assert int(state.opt_state["step"]) == 1
 
 
 def test_two_microbatches_equal_one(pair):
-    _, _, _, model, cfg, params = pair
-    batch = np_batch(cfg.vocab_size)
-    one, met1 = port_step_of(model, cfg, params, sgd(0.05), batch)
+    """2 microbatches equal 1, but for MoE: its Switch aux loss (a product
+    of two batch means) and its capacity are a microbatch's, in both
+    packages, so there the 2-microbatch step is held to JAX's."""
+    jmodel, jcfg, jparams, model, cfg, params = pair
+    batch = np_batch(cfg)
     two, met2 = port_step_of(model, cfg, params, sgd(0.05), batch,
                              n_microbatches=2)
-    assert_metrics_close(met2, met1)
+    if cfg.is_moe:
+        one, met1 = jax_step_of(jmodel, jcfg, jparams, jopt.sgd(0.05), batch,
+                                n_microbatches=2)
+        assert_metrics_close(met2, met1, metric_keys(cfg))
+        assert_params_close(two.params, one.params)
+        return
+    one, met1 = port_step_of(model, cfg, params, sgd(0.05), batch)
+    assert_metrics_close(met2, met1, metric_keys(cfg))
     assert_params_close(two.params, params_to_numpy(one.params))
 
 
 def test_ewc_step_matches_jax(pair):
     jmodel, jcfg, jparams, model, cfg, params = pair
-    batch = np_batch(cfg.vocab_size)
+    batch = np_batch(cfg)
     rng = np.random.default_rng(7)
     anchor = jax.tree.map(
         lambda x: (np.asarray(x) + 0.05 * rng.standard_normal(x.shape))
@@ -179,7 +221,7 @@ def test_ewc_step_with_fisher_and_microbatches_matches_jax():
         x.shape)).astype(np.float32), jparams)
     fisher = jax.tree.map(lambda x: rng.random(x.shape).astype(np.float32),
                           jparams)
-    batch = np_batch(cfg.vocab_size, seed=3)
+    batch = np_batch(cfg, seed=3)
     jstate, jmet = jax_step_of(
         jmodel, jcfg, jparams, jopt.sgd(0.05), batch,
         n_microbatches=2,
@@ -201,10 +243,11 @@ def test_smoke_forward_and_train_step(arch):
     opt = adamw(1e-3)
     state = init_train_state(model, opt, torch.Generator().manual_seed(0),
                              "cpu")
-    batch = lm_batch(np.random.default_rng(0), B, S, cfg.vocab_size)
+    batch = np_batch(cfg, seed=0)
     with torch.no_grad():
-        logits, _ = model.forward(state.params, tokens=batch["tokens"])
-    assert logits.shape == (B, S, cfg.vocab_size)
+        logits, _ = model.forward(state.params, **forward_inputs(cfg, batch))
+    n_patch = N_PATCH if cfg.family == "vlm" else 0
+    assert logits.shape == (B, n_patch + S, cfg.vocab_size)
     assert not bool(torch.isnan(logits).any()), arch
     new_state, metrics = build_train_step(model, cfg, opt)(state, batch)
     assert np.isfinite(float(metrics["loss"])), arch
@@ -318,10 +361,16 @@ def test_federated_llm_example_matches_jax(capsys):
     assert [line.split()[0] for line in out] == ["mamba2-370m"] * 2
 
 
-def test_federated_llm_example_refuses_moe():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_example("federated_llm_torch").federate("deepseek-moe-16b",
-                                                     device="cpu")
+def test_federated_llm_example_federates_moe(capsys):
+    """The example federates deepseek-moe-16b, one of the reference
+    example's default archs: the same update count
+    as the mamba2-370m run (the schedule does not depend on the model) and
+    a falling eval loss."""
+    got = load_example("federated_llm_torch").federate("deepseek-moe-16b",
+                                                       device="cpu")
+    assert got["stats"]["updates"] == chip_smoke.FED_LLM_UPDATES
+    assert got["loss1"] < got["loss0"]
+    assert capsys.readouterr().out.split()[0] == "deepseek-moe-16b"
 
 
 # --------------------------------------------- the kernels' plain VJPs, f64
@@ -383,7 +432,7 @@ def test_model_gradients_flow_through_both_kernels():
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), "cpu")
         live = tree_map(lambda x: x.requires_grad_(), params)
-        batch = np_batch(cfg.vocab_size)
+        batch = np_batch(cfg)
         logits, _ = model.forward(live, tokens=batch["tokens"])
         grads = torch.autograd.grad(logits.float().square().mean(),
                                     tree_leaves(live), allow_unused=True)
