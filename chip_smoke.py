@@ -12,8 +12,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
              padded S 2000, kernel and plain version each against the
              same function in f64;
              local_attn at gemma-2b, B 2, S 2048 in bf16 (the tensor-core
-             route, also against the same function in f64) and f32, and at
-             RecurrentGemma's window 2048, S 4096); the LSTM step's
+             route, also against the same function in f64) and f32, at
+             RecurrentGemma's window 2048, S 4096, and at launch.train's
+             shape in f32 (LAUNCH_ATTN: B 2, H 4, KV 1, S 64, D 64), timed
+             there too); the LSTM step's
              autograd.Function gradients against autograd of the plain
              cell; the whole-sequence LSTM kernels (forward and reverse
              scan) at the main path's shapes (B 8: T 672 with I 10, T 96
@@ -42,13 +44,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
              backward), and the sequence's serial floor; the backward
              kernels of ssd_chunk (mamba2-370m's training shape b 2, S
              2048 and the padded S 2000, and SSD_SHAPES) and of local_attn
-             (gemma-2b's training shape in bf16 and f32, the window 2048
-             at S 4096, head dims 80 and 192; bf16 at D 64-256 on the
+             (gemma-2b's training shape in bf16 and f32, launch.train's
+             in f32, the window 2048 at S 4096, head dims 80 and 192;
+             bf16 at D 64-256 on the
              tensor-core route, ``ops.launches_bwd_tc``), each against its
              plain VJP and the VJP in f64 (BWD_F64_FACTOR) and twice for
              the bits, local_attn's timed at gemma-2b's shape on both
-             routes (bf16 tensor cores, f32 CUDA cores) beside SDPA's
-             forward + backward in the same dtype.
+             routes (bf16 tensor cores, f32 CUDA cores) and at
+             launch.train's in f32, beside SDPA's forward + backward in
+             the same dtype.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, the
@@ -99,7 +103,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
 8. process — the process and TCP server tiers
              (``FedCCLConfig(server_processes=2)``, ``server_hosts``) at
              the main path's full width, fleet, rounds and epochs,
-             counters reset before each counted run: the sim runtime
+             counters reset before each counted run (one pair of
+             subprocess shard servers serves phases 8-10): the sim runtime
              batched on the in-process emulation (its workers fold in this
              process) against the thread-sharded store at 2 shards (stats
              equal but for the process fields, metas equal, params within
@@ -209,6 +214,26 @@ Phases, each fatal on failure (non-zero exit, no final line):
              4 organisations, 2 rounds): the
              eval loss falls, FED_LLM_UPDATES updates, fold launches equal
              to what the recorded folds imply, the global model moved.
+15. distribution — the mesh rules, ``ClusterParallel`` and the launchers
+             (counters set to 0 just before each run, read just after):
+             gemma-2b at full width in bf16 scored (2 x 2048) with its
+             parameters and tokens distributed by their specs
+             (``shardings_from_schema``) on ``make_host_mesh()``'s (1, 1)
+             mesh over an nccl world of one, ``rules=make_rules(mesh)``:
+             logits bit-equal to the plain forward's, one tensor-core
+             local_attn launch a layer (18); ``ClusterParallel`` with two
+             mamba2-370m cluster models at full width and depth in bf16
+             (AdamW, f32 moments), 2 x 2048 tokens a cluster, one step: 96
+             forward and 96 backward ssd_chunk launches, each cluster's
+             loss and parameters bit-equal to an independent
+             ``build_train_step`` step, ``global_params`` at counts (1, 3)
+             within one bf16 rounding step (relative 2^-8) of
+             ``multi_aggregate`` (the fedavg_agg kernel) and equal
+             clusters after ``broadcast_global``; and
+             ``launch.train.main`` (reduced gemma-2b, 3 steps of 2 x 64:
+             the f32 local_attn forward and backward kernels, 12 and 6
+             launches) and ``launch.serve.main`` in process on the card.
+             The process group is destroyed at the phase's end.
 
 Each phase's wall time is printed as a ``[time]`` line.  The script
 re-executes itself once with ``PYTHONHASHSEED=0``: the solar
@@ -221,6 +246,7 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -414,11 +440,17 @@ ATTN_F64_FACTOR = 2.0
 # BWD_F64_FACTOR times as far from the VJP evaluated in f64 as the plain
 # version's
 BWD_RTOL, BWD_BF16_RTOL, BWD_F64_FACTOR = 1e-4, 2e-2, 2.0
+# launch.train's attention (phase 15): reduced gemma-2b in f32 (H 4, KV 1,
+# D 64) at LAUNCH_TRAIN's batch 2 and seq 64, causal, no window: the f32
+# forward and backward routes at their D=64 instantiation (B, H, KV, S, D)
+LAUNCH_ATTN = (2, 4, 1, 64, 64)
 # local_attn's backward: (B, H, KV, S, D, causal, window, dtype): gemma-2b's
-# training shape in bf16 (the path) and f32, RecurrentGemma's window 2048
-# at S 4096, and head dims 80 and 192 (zero-padded to 128 and 256)
+# training shape in bf16 (the path) and f32, launch.train's shape in f32,
+# RecurrentGemma's window 2048 at S 4096, and head dims 80 and 192
+# (zero-padded to 128 and 256)
 ATTN_BWD_CASES = ((2, 8, 1, 2048, 256, True, 0, "bfloat16"),
                   (2, 8, 1, 2048, 256, True, 0, "float32"),
+                  (*LAUNCH_ATTN, True, 0, "float32"),
                   (1, 16, 1, 4096, 256, True, 2048, "float32"),
                   (1, 16, 16, 1024, 80, False, 0, "float32"),
                   (1, 16, 16, 1024, 80, False, 0, "bfloat16"),
@@ -1300,6 +1332,38 @@ def check_local_attn(dev, gen):
                     f"the kernel is {dk} from f64, its plain version {dpl}")
         print(line)
         err = max(err, e)
+    # launch.train's shape: the f32 route at D 64 with GQA 4:1, timed
+    lb, lh, lkv, ls, ld = LAUNCH_ATTN
+    lq, lk, lv = qkv(lb, lh, lkv, ls, ld, torch.float32)
+    lkw = dict(causal=True, window=0, scale=ld ** -0.5)
+    tc_before = ops.launches_tc
+    got = ops.local_flash_attention(lq, lk, lv, **lkw)
+    require(ops.launches_tc == tc_before, "local_attn at launch.train's "
+            "shape took the tensor-core route")
+    want = local_attention_ref(lq, lk, lv, **lkw)
+    e, lim = rel_err(got, want)
+    print(f"[kernels] local_attn launch.train shape B={lb} H={lh} KV={lkv} "
+          f"S={ls} D={ld} causal float32 ({ops.route(torch.float32, ld)} "
+          f"route): max abs err {e:.3e} (limit {lim:.3e})")
+    require(got.shape == lq.shape and e <= lim, f"local_attn at launch."
+            f"train's shape: max abs err {e} > {lim}")
+    err = max(err, e)
+    lpairs = lb * lh * ls * (ls + 1) // 2
+    lbms, lby = bound(4 * (2 * lq.numel() + lk.numel() + lv.numel()),
+                      lpairs * 4 * ld)
+
+    def lkernel():
+        return ops.local_flash_attention(lq, lk, lv, **lkw)
+    launch = {"launch_shape": f"B={lb}, H={lh}, KV={lkv}, S={ls}, D={ld}, "
+                              "causal, f32 (launch.train)",
+              "launch_f32_ms": cuda_ms(lkernel, iters=100, warmup=10),
+              "launch_f32_plain_ms": cuda_ms(lambda: local_attention_ref(
+                  lq, lk, lv, **lkw), iters=100, warmup=10),
+              "launch_f32_library_ms": cuda_ms(
+                  lambda: F.scaled_dot_product_attention(
+                      lq, lk, lv, is_causal=True, scale=lkw["scale"],
+                      enable_gqa=True), iters=100, warmup=10),
+              "launch_f32_bound_ms": lbms, "launch_f32_bound_by": lby}
     q, k, v = qkv(b, 8, 1, s, d, torch.bfloat16)
     # the same inputs as the model hands them over: (b, s, heads, D) views
     views = [t.transpose(1, 2).contiguous().transpose(1, 2)
@@ -1339,7 +1403,7 @@ def check_local_attn(dev, gen):
             "f32_library_ms": cuda_ms(library(q32, k32, v32), iters=10,
                                       warmup=2),
             "bound_ms": bms, "bound_by": by,
-            "f32_bound_ms": bound(2 * nbytes, flops)[0],
+            "f32_bound_ms": bound(2 * nbytes, flops)[0], **launch,
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
 
 
@@ -1433,11 +1497,13 @@ def check_ssd_bwd(dev, gen):
 def check_local_attn_bwd(dev, gen):
     """local_attn's backward kernels through the autograd Function at
     gemma-2b's training shape (B 2, H 8, KV 1, S 2048, D 256) in bf16 and
-    f32, RecurrentGemma's window 2048 at S 4096 and the padded head dims
-    80 and 192, against the plain VJP and the f64 VJP, twice for the bits,
-    bf16 at D 64-256 on the tensor-core route; timed at gemma-2b's shape
-    on both routes, each beside SDPA's forward + backward in its dtype
-    (the main keys bf16, the ``f32_`` keys the CUDA-core route)."""
+    f32, launch.train's (LAUNCH_ATTN) in f32, RecurrentGemma's window 2048
+    at S 4096 and the padded head dims 80 and 192, against the plain VJP
+    and the f64 VJP, twice for the bits, bf16 at D 64-256 on the
+    tensor-core route; timed at gemma-2b's shape on both routes and at
+    launch.train's in f32, each beside SDPA's forward + backward in its
+    dtype (the main keys bf16, the ``f32_`` keys the CUDA-core route, the
+    ``launch_f32_`` keys launch.train's shape)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn import ops
@@ -1474,13 +1540,17 @@ def check_local_attn_bwd(dev, gen):
             BWD_RTOL if dtype == torch.float32 else BWD_BF16_RTOL))
         del got
         torch.cuda.empty_cache()
-    d, scale = 256, 256 ** -0.5
-    kw = dict(causal=True, window=0, scale=scale)
     out = {}
-    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
-        q, dout = (torch.randn(b, 8, s, d, generator=gen, device=dev)
+    lb, lh, lkv, ls, ld = LAUNCH_ATTN
+    for dtype, key, (nb, h, kv, seq, d) in (
+            (torch.bfloat16, "", (b, 8, 1, s, 256)),
+            (torch.float32, "f32_", (b, 8, 1, s, 256)),
+            (torch.float32, "launch_f32_", LAUNCH_ATTN)):
+        scale = d ** -0.5
+        kw = dict(causal=True, window=0, scale=scale)
+        q, dout = (torch.randn(nb, h, seq, d, generator=gen, device=dev)
                    .to(dtype) for _ in range(2))
-        k, v = (torch.randn(b, 1, s, d, generator=gen, device=dev)
+        k, v = (torch.randn(nb, kv, seq, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         _, lse = ops._forward_cuda(q, k, v, True, 0, scale, True)
 
@@ -1504,31 +1574,39 @@ def check_local_attn_bwd(dev, gen):
         kernel()
         require(ops.launches_bwd_tc - before == (dtype == torch.bfloat16),
                 f"local_attn backward {dtype} took the wrong route")
+        small = key == "launch_f32_"
         out.update({
-            f"{key}ms": cuda_ms(kernel, iters=10, warmup=2),
-            f"{key}device_ms": device_ms("local_attn_bwd", kernel,
-                                         iters=10),
+            f"{key}ms": cuda_ms(kernel, iters=100 if small else 10,
+                                warmup=10 if small else 2),
             f"{key}fwd_bwd_ms": cuda_ms(fwd_bwd, iters=10, warmup=2),
             f"{key}plain_ms": cuda_ms(lambda: local_attention_bwd_ref(
                 q, k, v, dout, **kw), iters=5, warmup=1),
             f"{key}library_ms": cuda_ms(library, iters=10, warmup=2)})
+        if not small:
+            out[f"{key}device_ms"] = device_ms("local_attn_bwd", kernel,
+                                               iters=10)
+        # each input read once (q, k, v, dout, lse), each output written
+        # once; S, dP, dq, dk, dv over the causal half
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()
+                                     + 2 * v.numel() + q.numel()) \
+            + 4 * lse.numel()
+        flops = nb * h * seq * (seq + 1) // 2 * 10 * d
         if dtype == torch.bfloat16:
-            # each input read once (q, k, v, dout, lse), each output
-            # written once
-            nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                          + q.numel()) + 4 * lse.numel()
+            bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+            gflop, gbytes = flops / 1e9, nbytes / 1e9
+        else:
+            out[f"{key}bound_ms"], out[f"{key}bound_by"] = bound(nbytes,
+                                                                 flops)
         del q, k, v, dout, lse
         torch.cuda.empty_cache()
-    pairs = b * 8 * s * (s + 1) // 2            # the causal half
-    flops = pairs * 10 * d                      # S, dP, dq, dk, dv
-    bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
     return {"max_abs_err": err,
-            "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, causal, bf16 "
+            "shape": f"B={b}, H=8, KV=1, S={s}, D=256, causal, bf16 "
                      "(f32_ keys: f32)",
+            "launch_shape": f"B={lb}, H={lh}, KV={lkv}, S={ls}, D={ld}, "
+                            "causal, f32 (launch.train)",
             **out, "library_is": "SDPA forward + backward",
             "bound_ms": bms, "bound_by": by,
-            "f32_bound_ms": bound(nbytes, flops)[0],
-            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+            "gflop": gflop, "gbytes": gbytes}
 
 
 def check_lstm_step_route(dev) -> dict:
@@ -3010,23 +3088,29 @@ def process_stress(dev, srv):
                          tag="process")
 
 
-def phase_process(dev) -> tuple[dict, dict]:
-    """The process and TCP server tiers at the main path's full width: the
-    sim on the in-process emulation against the thread-sharded store, the
-    threaded runtime on spawned workers (batched, secure + DP), on two
-    subprocess shard servers with the read tier and a replica, on two
-    thread-hosted servers (launches counted here), and the mixed store
-    stress.  Returns the launches and routes of the runs in this process,
-    summed (counters set to 0 before each)."""
+@contextlib.contextmanager
+def shard_servers(dev):
+    """Two ``--device cuda`` subprocess shard servers, listed on the card,
+    shared by phases 8-10 (one cold start)."""
     from repro_torch.core.transport import LoopbackShardServers
 
-    runs = [process_sim(dev), process_threaded(dev)]
     before = compute_apps()
     with LoopbackShardServers(2, device=str(dev)) as srv:
         require_on_card(srv.pids, before, "subprocess shard servers")
-        runs.append(process_tcp(dev, srv))
-        runs.append(process_thread_hosted(dev))
-        process_stress(dev, srv)
+        yield srv
+
+
+def phase_process(dev, srv) -> tuple[dict, dict]:
+    """The process and TCP server tiers at the main path's full width: the
+    sim on the in-process emulation against the thread-sharded store, the
+    threaded runtime on spawned workers (batched, secure + DP), on the two
+    subprocess shard servers ``srv`` with the read tier and a replica, on
+    two thread-hosted servers (launches counted here), and the mixed store
+    stress.  Returns the launches and routes of the runs in this process,
+    summed (counters set to 0 before each)."""
+    runs = [process_sim(dev), process_threaded(dev),
+            process_tcp(dev, srv), process_thread_hosted(dev)]
+    process_stress(dev, srv)
     counts, routes = sum_counts(*runs)
     for name in PRIVACY_KERNELS:
         require(counts[name] > 0, f"kernel {name} never launched on the "
@@ -3775,18 +3859,13 @@ def phase_scenario(dev, srv) -> tuple[dict, dict]:
     return counts, routes
 
 
-def phase_telemetry_scenario(dev) -> tuple[dict, tuple]:
-    """Phases 9 and 10 around two ``--device cuda`` subprocess shard
-    servers they share.  Returns ({path: (counts, routes)}, the hidden-16
-    sim's (stats, histograms) for ``check_telemetry_cpu``)."""
-    from repro_torch.core.transport import LoopbackShardServers
-
-    before = compute_apps()
-    with LoopbackShardServers(2, device=str(dev)) as srv:
-        require_on_card(srv.pids, before, "subprocess shard servers")
-        tel_counts, tel_routes, want = phase_telemetry(dev, srv)
-        out = {"telemetry": (tel_counts, tel_routes),
-               "scenario": phase_scenario(dev, srv)}
+def phase_telemetry_scenario(dev, srv) -> tuple[dict, tuple]:
+    """Phases 9 and 10 on the two ``--device cuda`` subprocess shard
+    servers ``srv`` (phase 8's).  Returns ({path: (counts, routes)}, the
+    hidden-16 sim's (stats, histograms) for ``check_telemetry_cpu``)."""
+    tel_counts, tel_routes, want = phase_telemetry(dev, srv)
+    out = {"telemetry": (tel_counts, tel_routes),
+           "scenario": phase_scenario(dev, srv)}
     return out, want
 
 
@@ -4607,6 +4686,232 @@ def phase_train(dev) -> tuple[dict, dict]:
     return counts, fed
 
 
+# ----------------------------------------------------------------- phase 15
+CP_ARCH, CP_CLUSTERS, CP_COUNTS = "mamba2-370m", 2, (1, 3)
+LAUNCH_TRAIN = ["--arch", "gemma-2b", "--steps", "3", "--batch", "2",
+                "--seq", "64"]
+
+
+def placed_scoring(dev) -> dict:
+    """gemma-2b at full width in bf16 scored (2 x 2048) with its parameters
+    distributed by ``shardings_from_schema`` and its tokens by their specs
+    on ``make_host_mesh()``'s (1, 1) mesh over an nccl world of one, under
+    ``rules=make_rules(mesh)``: the logits equal the plain-tensor forward's
+    bit for bit, with one tensor-core local_attn launch a layer.  Returns
+    the mesh run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.mesh import host_world
+    from repro_torch.sharding.logical import (
+        distribute,
+        logical_to_spec,
+        make_rules,
+        mesh_sizes,
+        on_mesh,
+        placements,
+        shardings_from_schema,
+    )
+
+    arch = "gemma-2b"
+    cfg, model, params = llm_model(arch, dev)
+    b, seq = LLM[arch].score
+    toks = torch.as_tensor(llm_batch(cfg, np.random.default_rng(0), b,
+                                     seq)["tokens"], device=dev)
+    with torch.no_grad():
+        plain, _ = model.forward(params, tokens=toks)
+    want = {name: 0 for name in path_counts()}
+    want["local_attn"] = want["local_attn_tc"] = cfg.n_layers
+    with host_world(dev) as mesh:
+        rules = make_rules(mesh)
+        placed = distribute(params, mesh,
+                            shardings_from_schema(model.schema(), mesh, rules))
+        dtoks = distribute_tensor(toks, mesh, placements(logical_to_spec(
+            ("batch", "seq"), rules, tuple(toks.shape)), mesh),
+            src_data_rank=None)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), on_mesh():
+            out, _ = model.forward(placed, tokens=dtoks, rules=rules)
+        local = out.to_local()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts()
+        print(f"[distribution] {arch} scored on the mesh "
+              f"{mesh_sizes(mesh)} ({dist.get_backend()}), logits {type(out).__name__} "
+              f"{tuple(out.placements)}: {wall * 1e3:.1f} ms wall, launches "
+              f"{json.dumps(counts)}, bit-equal to the plain forward: "
+              f"{torch.equal(local, plain)}")
+    require(counts == want, f"placed scoring launched {counts}, expected "
+                            f"{want}")
+    require(torch.equal(local, plain), "placed scoring: the logits differ "
+            "from the plain forward's")
+    return counts
+
+
+def cluster_parallel_round(dev) -> dict:
+    """``ClusterParallel`` with CP_CLUSTERS mamba2-370m cluster models at
+    full width and depth in bf16 (AdamW, f32 moments, as phase 14), one
+    ``lm_batch(structure=1.0)`` of 2 x 2048 each, one step: one forward and
+    one backward ssd_chunk launch a layer a cluster; each cluster's loss
+    and parameters equal to an independent ``build_train_step`` step on
+    the same state and batch bit for bit; ``global_params`` at CP_COUNTS
+    within one bf16 rounding step (relative 2^-8) of each value of
+    ``multi_aggregate`` over the
+    clusters (the fedavg_agg kernel); equal clusters after
+    ``broadcast_global``.  Returns the round's launches (the step's and
+    the global tier's)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregation import multi_aggregate
+    from repro_torch.core.cluster_parallel import ClusterParallel
+    from repro_torch.data.lm_synth import lm_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainState, build_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    K = CP_CLUSTERS
+    cfg = get_config(CP_ARCH)
+    model = build_model(cfg)
+    opt = adamw(TRAIN_LR, moment_dtype=getattr(torch, TRAIN_MOMENTS[CP_ARCH]))
+    cp = ClusterParallel(model, cfg, opt, K)
+    state = cp.init(torch.Generator(device=dev).manual_seed(0), dev)
+    b, seq = LLM_TRAIN[CP_ARCH]
+    batches = [lm_batch(np.random.default_rng(10 + k), b, seq,
+                        cfg.vocab_size, structure=1.0) for k in range(K)]
+    stacked = {key: torch.as_tensor(np.stack([bt[key] for bt in batches]),
+                                    device=dev) for key in batches[0]}
+    want = {name: 0 for name in path_counts()}
+    want["ssd_chunk"] = 2 * K * cfg.n_layers
+    want["ssd_chunk_bwd"] = K * cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    new_state, metrics = cp.step(state, stacked)
+    losses = metrics["loss"].tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[distribution] ClusterParallel {CP_ARCH} x {K} ({cfg.n_layers} "
+          f"layers, {cfg.dtype}, AdamW {TRAIN_MOMENTS[CP_ARCH]} moments), "
+          f"batch {b} x {seq} a cluster: losses {losses}, {wall * 1e3:.1f} ms "
+          f"wall, peak memory {peak:.2f} GiB, launches {json.dumps(counts)}; "
+          f"card: {card_line()}")
+    require(counts == want, f"ClusterParallel launched {counts}, expected "
+                            f"{want}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    inner = build_train_step(model, cfg, opt)
+    take = lambda tree, k: tree_map(lambda x: x[k], tree)
+    for k in range(K):
+        ref, ref_m = inner(TrainState(take(state.params, k),
+                                      take(state.opt_state, k)),
+                           {key: v[k] for key, v in stacked.items()})
+        same = all(torch.equal(a, r) for a, r in zip(
+            tree_leaves(take(new_state.params, k)), tree_leaves(ref.params),
+            strict=True))
+        print(f"[distribution] cluster {k}: loss {losses[k]!r} vs an "
+              f"independent step's {ref_m['loss'].item()!r}; parameters "
+              f"bit-equal {same}")
+        require(losses[k] == ref_m["loss"].item() and same,
+                f"cluster {k} differs from an independent step")
+        del ref, ref_m
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    g = cp.global_params(new_state, list(CP_COUNTS))
+    fold = multi_aggregate([take(new_state.params, k) for k in range(K)],
+                           list(CP_COUNTS))
+    torch.cuda.synchronize()
+    counts = add_counts(counts, path_counts())
+    worst = 0.0
+    for a, r in zip(tree_leaves(g), tree_leaves(fold), strict=True):
+        a, r = a.to(torch.float32), r.to(torch.float32)
+        # one bf16 rounding step: relative 2^-8 of the larger value
+        lim = torch.maximum(a.abs(), r.abs()) * 2.0 ** -8
+        worst = max(worst, ((a - r).abs() / lim.clamp_min(1e-30)).max().item())
+    print(f"[distribution] global_params at counts {CP_COUNTS} vs "
+          f"multi_aggregate (fedavg_agg launches "
+          f"{counts['fedavg_agg']}): worst |diff| / (2^-8 x value) "
+          f"{worst:.3f}")
+    require(worst <= 1.0, f"global_params differs from multi_aggregate by "
+                          f"{worst:.3f} x 2^-8 of the value")
+    require(counts["fedavg_agg"] >= 1, "multi_aggregate launched no fold")
+    synced = cp.broadcast_global(new_state, g)
+    require(all(torch.equal(x[0], x[k]) for x in tree_leaves(synced.params)
+                for k in range(1, K)), "clusters differ after "
+            "broadcast_global")
+    return counts
+
+
+def launchers(dev) -> dict:
+    """``launch.train.main`` (reduced gemma-2b, f32: the f32 local_attn
+    forward and backward kernels) and ``launch.serve.main`` at its
+    defaults, in process on the card: finite losses, one f32 forward and
+    one f32 backward local_attn launch a layer a step, tokens within the
+    vocabulary.  Returns the two runs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve, train
+
+    cfg = reduced_for_smoke(get_config("gemma-2b"))
+    flag = lambda name: int(LAUNCH_TRAIN[LAUNCH_TRAIN.index(name) + 1])
+    steps = flag("--steps")
+    require((flag("--batch"), cfg.n_heads, cfg.n_kv_heads, flag("--seq"),
+             cfg.head_dim) == LAUNCH_ATTN, "launch.train's attention shape "
+            f"is not LAUNCH_ATTN {LAUNCH_ATTN}, at which phase 2 checks it")
+    want = {name: 0 for name in path_counts()}
+    want["local_attn"] = 2 * steps * cfg.n_layers
+    want["local_attn_bwd"] = steps * cfg.n_layers
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _, losses = train.main([*LAUNCH_TRAIN, "--device", dev.type])
+    torch.cuda.synchronize()
+    counts = path_counts()
+    print(f"[distribution] launch.train {' '.join(LAUNCH_TRAIN)}: losses "
+          f"{losses}, launches {json.dumps(counts)}")
+    require(all(math.isfinite(x) for x in losses), f"launch.train losses "
+                                                   f"{losses}")
+    require(counts == want, f"launch.train launched {counts}, expected {want}")
+    reset_launch_counts()
+    out = serve.main(["--device", dev.type])
+    torch.cuda.synchronize()
+    more = path_counts()
+    print(f"[distribution] launch.serve: tokens {np.asarray(out).shape}, "
+          f"range [{int(np.min(out))}, {int(np.max(out))}], launches "
+          f"{json.dumps(more)}")
+    require(((out >= 0) & (out < cfg.vocab_size)).all(),
+            "launch.serve: a token outside the vocabulary")
+    return add_counts(counts, more)
+
+
+def phase_distribution(dev) -> tuple[dict, dict]:
+    """Phase 15 (see the module docstring).  Returns the launches of the
+    "distribution" path (placed scoring and the cluster-parallel round)
+    and of the "launch" path (the launchers)."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts = placed_scoring(dev)
+    torch.cuda.empty_cache()
+    counts = add_counts(counts, cluster_parallel_round(dev))
+    torch.cuda.empty_cache()
+    launched = launchers(dev)
+    print(f"[distribution] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"card: {card_line()}")
+    return counts, launched
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         os.execve(sys.executable, [sys.executable, __file__, *sys.argv[1:]],
@@ -4656,9 +4961,11 @@ def main() -> int:
         counts["sharded"], routes["sharded"], card16 = \
             phase_sharded(dev, idle)
         mark("sharded")
-        counts["process"], routes["process"] = phase_process(dev)
-        mark("process")
-        paths, telemetry16 = phase_telemetry_scenario(dev)
+        # one pair of --device cuda shard servers for phases 8-10
+        with shard_servers(dev) as srv:
+            counts["process"], routes["process"] = phase_process(dev, srv)
+            mark("process")
+            paths, telemetry16 = phase_telemetry_scenario(dev, srv)
         for path, (c, r) in paths.items():
             counts[path], routes[path] = c, r
         mark("telemetry and scenario")
@@ -4675,6 +4982,8 @@ def main() -> int:
         mark("example")
         counts["train"], counts["fed_llm"] = phase_train(dev)
         mark("train")
+        counts["distribution"], counts["launch"] = phase_distribution(dev)
+        mark("distribution")
         check_sharded_cpu(card16, child.result("sharded"))
         check_telemetry_cpu(child.result("telemetry"), *telemetry16)
     except SmokeFailure as exc:

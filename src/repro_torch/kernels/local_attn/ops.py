@@ -35,6 +35,11 @@ the forward's route (``route`` decides both):
 CPU tensors run ``ref.local_attention_bwd_ref``.  The D padding stays
 outside the Function, so its gradient is PyTorch's.
 
+DTensor inputs (a model run on a ``DeviceMesh``) run the same route on
+each rank's shards through ``local_map``: batch and, where the query and
+the kv heads both divide by the mesh extent, heads stay sharded; sequence
+and head_dim are gathered first.  The backward runs on the shards too.
+
 ``launches`` counts every launch, forward and backward; ``launches_tc``
 the forward's tensor-core route; ``launches_bwd`` the backward's, and
 ``launches_bwd_tc`` its tensor-core route's.
@@ -259,10 +264,35 @@ class LocalAttnFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _on_mesh(q, k, v, **kw):
+    """``local_flash_attention`` of DTensors, shard by shard."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.logical import kernel_split, split_placements
+
+    split = kernel_split(q, batch=0, heads=1, counts=(q.shape[1], k.shape[1]))
+    pl = split_placements(split, batch=0, heads=1)
+    q, k, v = (t.redistribute(q.device_mesh, pl) for t in (q, k, v))
+    run = local_map(lambda a, b, c: _on_shards(a, b, c, **kw),
+                    out_placements=(pl,), in_placements=(pl, pl, pl),
+                    device_mesh=q.device_mesh)
+    return run(q, k, v)
+
+
+def _on_shards(q, k, v, **kw):
+    """One rank's shards: the wrapper's route, or -- ``meta`` shards, a
+    dry-run that only follows shapes -- the plain version."""
+    if q.device.type == "meta":
+        return local_attention_ref(q, k, v, **kw)
+    return local_flash_attention(q, k, v, **kw)
+
+
 def local_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: float = 1.0):
     """q: (B, H, S, D); k/v: (B, KV, T, D), f32 or bf16 -> (B, H, S, D) in
     q's dtype.  Arbitrary S/T, any D up to 256; differentiable."""
+    if hasattr(q, "device_mesh"):
+        return _on_mesh(q, k, v, causal=causal, window=window, scale=scale)
     need_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if not build.on_cuda("local_attn", q, k, v):

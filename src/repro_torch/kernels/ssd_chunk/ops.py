@@ -26,6 +26,12 @@ chunk states), then the inter-chunk recurrence and the off-diagonal term
 (from the grouped C) in PyTorch, differentiated by autograd; the kernel
 pair through ``SsdIntraChunkFn``.
 
+DTensor inputs (a model run on a ``DeviceMesh``) run ``ssd_chunked_fused``
+on each rank's shards through ``local_map``: batch and, where the heads and
+the groups both divide by the mesh extent, heads (and their groups) stay
+sharded; the sequence is gathered first.  ``meta`` shards (the dry-run)
+take the plain ``ssd_intra_chunk_ref``, which follows shapes.
+
 ``launches`` counts every launch, forward and backward; ``launches_bwd``
 the backward's alone.
 """
@@ -208,7 +214,51 @@ class SsdIntraChunkFn(torch.autograd.Function):
         return ssd_intra_chunk_bwd(xdt, dA, B, C, dy, dstates)
 
 
+def _on_mesh(x, dt, A, B, C, chunk, init_state):
+    """``ssd_chunked_fused`` of DTensors, shard by shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.logical import kernel_split, split_placements
+
+    mesh = x.device_mesh
+    split = kernel_split(x, batch=0, heads=2, counts=(x.shape[2], B.shape[2]))
+    pl_x = split_placements(split, batch=0, heads=2)       # x, dt, B, C
+    pl_a = split_placements(split, batch=None, heads=0)    # A
+    pl_s = split_placements(split, batch=0, heads=1)       # states
+
+    def on(t, pl):
+        if not isinstance(t, DTensor):       # made by the caller: replicated
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl)
+
+    args = [on(x, pl_x), on(dt, pl_x), on(A, pl_a), on(B, pl_x), on(C, pl_x)]
+    in_pl = [pl_x, pl_x, pl_a, pl_x, pl_x]
+    if init_state is not None:
+        args.append(on(init_state, pl_s))
+        in_pl.append(pl_s)
+
+    def on_shards(*a):
+        # meta shards (the dry-run, shapes only) take the plain version
+        intra = (ssd_intra_chunk_ref if a[0].device.type == "meta"
+                 else SsdIntraChunkFn.apply)
+        return _chunked(*a[:5], chunk, a[5] if len(a) > 5 else None, intra)
+
+    run = local_map(on_shards, out_placements=(pl_x, pl_s),
+                    in_placements=tuple(in_pl), device_mesh=mesh)
+    return run(*args)
+
+
 def ssd_chunked_fused(x, dt, A, B, C, chunk: int, init_state=None):
+    if hasattr(x, "device_mesh"):
+        return _on_mesh(x, dt, A, B, C, chunk, init_state)
+    return _chunked(x, dt, A, B, C, chunk, init_state, SsdIntraChunkFn.apply)
+
+
+def _chunked(x, dt, A, B, C, chunk: int, init_state, intra):
+    """The chunked scan around ``intra`` (the kernel pair's Function, or
+    the plain ``ssd_intra_chunk_ref``)."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     pad = (-l) % chunk
@@ -229,8 +279,8 @@ def ssd_chunked_fused(x, dt, A, B, C, chunk: int, init_state=None):
     xdt = xc * dtc[..., None]
     dA = dtc * A[None, None, None, :]
 
-    y_diag, states = SsdIntraChunkFn.apply(xdt.contiguous(), dA.contiguous(),
-                                           Bg.contiguous(), Cg.contiguous())
+    y_diag, states = intra(xdt.contiguous(), dA.contiguous(),
+                           Bg.contiguous(), Cg.contiguous())
     states = states.transpose(3, 4)                        # (b,c,h,p,n)
 
     # inter-chunk recurrence (sequential over c)

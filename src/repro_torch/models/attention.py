@@ -18,7 +18,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.local_attn.ops import local_flash_attention
 from repro_torch.models.layers import apply_rope, einsum, softcap
-from repro_torch.sharding.logical import ParamSpec, constrain
+from repro_torch.sharding.logical import (
+    ParamSpec,
+    constrain,
+    pin_placements,
+    placed_like,
+)
 
 NEG_INF = -2.0**30  # large-negative instead of -inf: keeps softmax NaN-free
 # softcapped attention takes the chunked flash above this length (the
@@ -193,9 +198,7 @@ def _write_at(cache, new, pos_b):
     start = torch.clamp(pos_b, 0, cache.shape[1] - s)
     rows = torch.arange(b, device=cache.device)[:, None]
     cols = start[:, None] + torch.arange(s, device=cache.device)
-    out = cache.clone()
-    out[rows, cols] = new.to(cache.dtype)
-    return out
+    return torch.index_put(cache, (rows, cols), new.to(cache.dtype))
 
 
 def _cache_positions(cache_pos, b: int, device) -> torch.Tensor:
@@ -247,7 +250,11 @@ def attention_forward(cfg: ModelConfig, p: dict, x, *, positions, window: int,
 
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(b, s, kv, g, hd)
+    # the GQA split (h -> kv, g) is a view DTensor follows only where q's
+    # heads are sharded on whole kv heads: q takes k's placements (heads
+    # sharded where kv divides the axis, else gathered), as the kernel
+    # needs them anyway (``kernel_split``)
+    qg = placed_like(q, k).reshape(b, s, kv, g, hd)
 
     if cache is None:
         if not cap:
@@ -286,7 +293,8 @@ def attention_forward(cfg: ModelConfig, p: dict, x, *, positions, window: int,
         bias = torch.where(valid[:, None, :], bias, NEG_INF)
         out = _sdpa(qg, take(ck), take(cv), bias, scale, cap, rules)
 
-    out = out.reshape(b, s, h, hd)
+    # (kv, g) merged back to heads; the gradient keeps the merged layout
+    out = pin_placements(out.reshape(b, s, h, hd))
     y = einsum("bshk,hkd->bsd", out, p["wo"])
     return constrain(y, ("batch", "seq", "embed"), rules), new_cache
 

@@ -1,7 +1,8 @@
 """Shared low-level layers: RMSNorm, RoPE, activations, softcap.
 
 ``einsum`` promotes mixed operand dtypes as JAX does (bf16 with f32 gives
-f32); ``torch.einsum`` itself refuses mixed dtypes.
+f32); ``torch.einsum`` itself refuses mixed dtypes.  An einsum with a
+sharded DTensor operand goes to ``sharding.mesh_ops.einsum``.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import mesh_ops
 from repro_torch.sharding.logical import ParamSpec
 
 
@@ -16,7 +18,10 @@ def einsum(eq: str, *operands) -> torch.Tensor:
     dtype = operands[0].dtype
     for x in operands[1:]:
         dtype = torch.promote_types(dtype, x.dtype)
-    return torch.einsum(eq, *(x.to(dtype) for x in operands))
+    operands = [x.to(dtype) for x in operands]
+    if any(mesh_ops.is_sharded(x) for x in operands):
+        return mesh_ops.einsum(eq, operands)
+    return torch.einsum(eq, *operands)
 
 
 def rmsnorm_schema(dim: int, name: str = "scale") -> dict:

@@ -30,9 +30,11 @@ from repro_torch.models.blocks import (
 from repro_torch.models.layers import einsum, rmsnorm, rmsnorm_schema
 from repro_torch.sharding.logical import (
     ParamSpec,
+    Rules,
     constrain,
     init_from_schema,
     schema_shapes,
+    specs_from_schema,
     stack_schema,
 )
 from repro_torch.utils.device import resolve_device
@@ -106,6 +108,9 @@ class LanguageModel:
 
     def param_shapes(self):
         return schema_shapes(self.schema(), self._dtype())
+
+    def param_specs(self, rules: Rules):
+        return specs_from_schema(self.schema(), rules)
 
     # ------------------------------------------------------------ embeddings
     def _embed(self, params, tokens):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.logical import settle
 
 MTP_WEIGHT = 0.3  # DeepSeek-V3 MTP loss coefficient
 
@@ -14,7 +15,7 @@ def softmax_cross_entropy(logits, labels, mask=None):
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     labels = torch.as_tensor(labels, device=logits.device).long()
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = settle(torch.gather(logits, -1, labels.unsqueeze(-1))).squeeze(-1)
     ce = logz - gold
     if mask is not None:
         mask = torch.as_tensor(mask, device=logits.device).to(torch.float32)

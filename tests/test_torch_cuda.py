@@ -37,6 +37,12 @@ within 2 of ln V; decode by replay within 2e-4 of the kernel forward (the
 rolling cache wrapping at window 8) and ragged decoding equal to
 independent decoding.
 
+Distribution: reduced gemma-2b's forward on ``make_host_mesh()``'s (1, 1)
+mesh (an nccl world of one) equals the plain forward bit for bit, and
+``ClusterParallel`` (two reduced gemma-2b clusters, one SGD step) on the
+card equals the CPU within 1e-4 (loss) and 1e-4 x max(1, max|p_cpu|)
+(parameters, the global tier).
+
 The whole-sequence LSTM kernels (``csrc/lstm_seq.cu``): the forward equals
 the chained step kernel bit for bit, and forward and backward sit within
 2e-5 * max(1, max|plain|) of their plain versions (138-term sums in another
@@ -1039,3 +1045,91 @@ def test_spawned_cuda_workers_cold_start_and_fold(cuda):
                     assert g.device.type == "cuda"
                     assert (g.cpu() - p).abs().max().item() <= 1e-6
             s.close()
+
+
+# ------------------------------------------------------------ distribution
+def test_forward_on_a_one_card_mesh_equals_the_plain_forward(cuda):
+    """Reduced gemma-2b with its parameters and tokens distributed on
+    ``make_host_mesh()``'s (1, 1) mesh over an nccl world of one: the
+    logits equal the plain forward's on the card bit for bit, one
+    ``local_attn`` launch a layer; the group is gone afterwards."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import host_world
+    from repro_torch.sharding.logical import (
+        distribute,
+        logical_to_spec,
+        make_rules,
+        on_mesh,
+        placements,
+        shardings_from_schema,
+    )
+
+    cfg = reduced_for_smoke(get_config("gemma-2b"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    toks = torch.as_tensor(lm_batch(np.random.default_rng(0), 2, 64,
+                                    cfg.vocab_size)["tokens"], device=cuda)
+    with torch.no_grad():
+        base, _ = model.forward(params, tokens=toks)
+    with host_world(cuda) as mesh:
+        rules = make_rules(mesh)
+        placed = distribute(params, mesh, shardings_from_schema(
+            model.schema(), mesh, rules))
+        dtoks = distribute_tensor(toks, mesh, placements(logical_to_spec(
+            ("batch", "seq"), rules, tuple(toks.shape)), mesh),
+            src_data_rank=None)
+        reset_launch_counts()
+        with torch.no_grad(), on_mesh():
+            out, _ = model.forward(placed, tokens=dtoks, rules=rules)
+        torch.cuda.synchronize()
+        assert launch_counts()["local_attn"] == cfg.n_layers
+        assert torch.equal(out.to_local(), base)
+    assert not dist.is_initialized()
+
+
+def test_cluster_parallel_on_card_matches_cpu(cuda):
+    """Two reduced gemma-2b clusters, one SGD step each (no clipping), from
+    the same CPU-drawn parameters on the card and on the CPU: losses within
+    1e-4; the parameters and the global tier within the reference test's
+    rtol 1e-4 / atol 1e-6; and each cluster's update (new - init) leaf by
+    leaf within 1e-3 x max|update_cpu| plus one f32 ulp of max|p_cpu| (the
+    rounding of the two subtractions), so that a card step that applied
+    no update, or another cluster's, fails."""
+    from repro_torch.core.cluster_parallel import ClusterParallel
+    from repro_torch.optim import sgd
+
+    cfg = reduced_for_smoke(get_config("gemma-2b"))
+    rng = np.random.default_rng(0)
+    batches = [lm_batch(rng, 2, 32, cfg.vocab_size, structure=1.0)
+               for _ in range(2)]
+    stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg)
+        cp = ClusterParallel(model, cfg, sgd(5e-3), 2, grad_clip=0.0)
+        state = cp.init(torch.Generator().manual_seed(0), dev)
+        init = [x.cpu() for x in tree_leaves(state.params)]
+        new, metrics = cp.step(state, {k: torch.as_tensor(v, device=dev)
+                                       for k, v in stacked.items()})
+        runs[str(dev)] = (init, new, metrics, cp.global_params(new, [1, 3]))
+    (c_init, c_new, c_m, c_g), (g_init, g_new, g_m, g_g) = (runs["cpu"],
+                                                            runs[str(cuda)])
+    np.testing.assert_allclose(g_m["loss"].cpu().numpy(),
+                               c_m["loss"].numpy(), atol=1e-4, rtol=0)
+    for got, want in ((g_new.params, c_new.params), (g_g, c_g)):
+        for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+    moved = 0
+    for gi, ci, a, b in zip(g_init, c_init, tree_leaves(g_new.params),
+                            tree_leaves(c_new.params), strict=True):
+        assert torch.equal(gi, ci)
+        for k in range(2):
+            du, dc = a[k].cpu() - gi[k], b[k] - ci[k]
+            lim = (1e-3 * dc.abs().max().item()
+                   + 2.0 ** -23 * ci[k].abs().max().item())
+            assert (du - dc).abs().max().item() <= lim
+            moved += bool(dc.abs().max() > lim)
+    assert moved > 0

@@ -1,0 +1,107 @@
+"""The port's dry-run against the JAX package's, on the CPU.
+
+``input_specs`` gives the reference's keys, shapes and dtypes as meta
+tensors for every family.  One (arch, shape) runs end to end in a
+subprocess on a fake 256-rank world (gemma-2b ``decode_32k`` at 16x16, a
+few seconds): status ok, its ``analytic`` record equal to the
+reference's ``analytic_costs`` for the same arguments, its collectives
+recorded from DTensor (the plan's in the roofline, ``mesh_ops``' gathers
+apart).  The reference's two subprocess tests (mamba2-370m
+``train_4k --multi-pod``) and the cluster-parallel mode are ``heavy``, as
+the reference's are.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.configs import INPUT_SHAPES as JAX_SHAPES
+from repro.configs import get_config as jax_get_config
+from repro.launch import dryrun as jax_dryrun
+from repro.launch.roofline import analytic_costs as jax_analytic_costs
+from repro_torch.configs import ALL_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.launch import dryrun
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_DTYPES = {torch.bfloat16: jnp.bfloat16, torch.int32: jnp.int32,
+           torch.bool: jnp.bool_}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_input_specs_cover_all_families(shape):
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch)
+        sds, logical = dryrun.input_specs(cfg, INPUT_SHAPES[shape])
+        jsds, jlogical = jax_dryrun.input_specs(jax_get_config(arch),
+                                                JAX_SHAPES[shape])
+        assert set(sds) == set(logical) == set(jsds)
+        assert logical == jlogical
+        for k, s in sds.items():
+            assert s.device.type == "meta"
+            assert tuple(s.shape) == tuple(jsds[k].shape), (arch, k)
+            assert _DTYPES[s.dtype] == jsds[k].dtype, (arch, k)
+            assert s.shape[0] == INPUT_SHAPES[shape].global_batch
+
+
+def run_dryrun(*args, timeout=540):
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        capture_output=True, text=True, env=env, timeout=timeout)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_dryrun_subprocess_decode_single_pod():
+    rec = run_dryrun("--arch", "gemma-2b", "--shape", "decode_32k", timeout=120)
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16"
+    want = jax_analytic_costs(jax_get_config("gemma-2b"),
+                              JAX_SHAPES["decode_32k"], 256,
+                              {"data": 16, "model": 16}, remat="none",
+                              moment_bytes=4, window_override=None,
+                              mla_absorb=True)
+    assert rec["analytic"] == want
+    assert rec["roofline"]["compute_s"] > 0
+    coll = rec["collectives"]
+    assert coll["total"] > 0 and sum(coll["counts"].values()) > 0
+    assert coll["total"] == sum(coll["by_kind"].values())
+    assert rec["roofline"]["collective_bytes_per_dev"] == coll["total"]
+    fb = coll["fallback"]
+    assert set(fb) == {"total", "by_kind", "counts"}
+    assert fb["total"] == sum(fb["by_kind"].values())
+    assert rec["memory"]["argument_bytes"] > 0
+    assert rec["memory"]["temp_bytes"] is None and rec["memory"]["note"]
+    assert "hlo_raw_cost" not in rec
+
+
+def test_encoder_only_decode_is_skipped():
+    rec = dryrun.run_one("hubert-xlarge", "decode_32k", verbose=False)
+    assert rec["status"] == "skipped" and rec["reason"]
+
+
+@pytest.mark.heavy
+def test_dryrun_subprocess_single_pod():
+    rec = run_dryrun("--arch", "gemma-2b", "--shape", "train_4k")
+    assert rec["status"] == "ok"
+    assert rec["roofline"]["compute_s"] > 0
+
+
+@pytest.mark.heavy
+def test_dryrun_subprocess_multi_pod():
+    rec = run_dryrun("--arch", "mamba2-370m", "--shape", "train_4k",
+                     "--multi-pod")
+    assert rec["status"] == "ok" and rec["mesh"] == "2x16x16"
+
+
+@pytest.mark.heavy
+def test_dryrun_subprocess_cluster_parallel():
+    rec = run_dryrun("--arch", "mamba2-370m", "--shape", "train_4k",
+                     "--cluster-parallel")
+    assert rec["status"] == "ok" and rec["n_clusters"] == 2
+    assert rec["collectives"]["by_kind"]["all-reduce"] > 0
