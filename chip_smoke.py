@@ -23,7 +23,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
              forward against the chained step kernel bit for bit, the
              backward run twice bit for bit, and ``LSTMSeqFn``'s gradients
              against an f64 evaluation; the fold by leaves against the
-             stacked fold bit for bit, one launch up to 64 trees;
+             stacked fold bit for bit, one launch up to 64 trees; the
+             stacked fold at N 1-130 (one launch up to 64 sets), T odd and
+             T % 4 == 0 (its 16-byte route), bit for bit against the fold
+             by leaves;
              ``ewc_update``'s bits on two runs (T not a multiple of 4,
              views off 16-byte alignment) and one device kernel a call;
              ``dp_clip_noise``'s bits on two runs on both routes (a
@@ -46,13 +49,13 @@ Phases, each fatal on failure (non-zero exit, no final line):
              2048 and the padded S 2000, and SSD_SHAPES) and of local_attn
              (gemma-2b's training shape in bf16 and f32, launch.train's
              in f32, the window 2048 at S 4096, head dims 80 and 192;
-             bf16 at D 64-256 on the
-             tensor-core route, ``ops.launches_bwd_tc``), each against its
+             bf16 at D 64-256 on the tensor-core route,
+             ``ops.launches_bwd_tc``, every other call on the split-tf32
+             route, ``ops.launches_bwd_tf32``), each against its
              plain VJP and the VJP in f64 (BWD_F64_FACTOR) and twice for
              the bits, local_attn's timed at gemma-2b's shape on both
-             routes (bf16 tensor cores, f32 CUDA cores) and at
-             launch.train's in f32, beside SDPA's forward + backward in
-             the same dtype.
+             routes (bf16 wgmma, f32 split tf32) and at launch.train's in
+             f32, beside SDPA's forward + backward in the same dtype.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, the
@@ -262,6 +265,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12     # dense bf16 on the tensor cores
+TF32_TC_FLOP_PER_S = 495e12     # dense tf32 on the tensor cores
 
 # examples/solar_forecasting.py's default run (3 epochs) at the full
 # SolarLSTMConfig width; the privacy path adds the committed
@@ -307,13 +311,27 @@ KERNEL_META = {
     "ssd_chunk_bwd": ("src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
                       "src/repro/kernels/ssd_chunk/ssd_chunk.py:59"),
     # bf16 (the path) on the tensor cores; f32 and head dims 16, 32 take
-    # csrc/local_attn_bwd.cu
+    # the split-tf32 route (ROUTE_META)
     "local_attn_bwd": ("src/repro_torch/kernels/csrc/local_attn_bwd_tc.cu",
                        "src/repro/kernels/local_attn/local_attn.py:90"),
 }
+# routes of a kernel above with a source of their own, each a kernels-line
+# entry: (kernel, the prefix of its keys in that kernel's phase-2 result,
+# source); its launches are path_counts()' / route_counts()' entry of the
+# same name
+ROUTE_META = {
+    # aggregate_flat: the stacked fold (0 launches on the paths)
+    "fedavg_agg_stacked": ("fedavg_agg", "stacked_",
+                           "src/repro_torch/kernels/csrc/fedavg_agg.cu"),
+    # f32 and bf16 at D 16, 32: launch.train's path
+    "local_attn_bwd_tf32": (
+        "local_attn_bwd", "f32_",
+        "src/repro_torch/kernels/csrc/local_attn_bwd_tf32.cu"),
+}
 # each wrapper's own CUDA kernels, as torch.profiler names them
 KERNEL_SYMBOLS = {
-    "fedavg_agg": ("fedavg_agg_kernel", "fedavg_agg_leaves_kernel"),
+    "fedavg_agg": ("fedavg_agg_kernel", "fedavg_agg_vec4_kernel",
+                   "fedavg_agg_leaves_kernel"),
     "lstm_cell": ("lstm_cell_kernel", "lstm_seq_fwd_kernel",
                   "lstm_seq_bwd_kernel"),
     "ewc_update": ("ewc_update_kernel",),
@@ -324,8 +342,8 @@ KERNEL_SYMBOLS = {
     "ssd_chunk_bwd": ("ssd_chunk_bwd_kernel", "ssd_chunk_bwd_fold_kernel"),
     "local_attn_bwd": ("local_attn_bwd_tc_dq_kernel",
                        "local_attn_bwd_tc_dkdv_kernel",
-                       "local_attn_bwd_dq_kernel",
-                       "local_attn_bwd_dkdv_kernel",
+                       "local_attn_bwd_tf32_dq_kernel",
+                       "local_attn_bwd_tf32_dkdv_kernel",
                        "local_attn_bwd_fold_kernel"),
 }
 
@@ -626,36 +644,61 @@ def phase_build():
 
 # ------------------------------------------------------------------ phase 2
 def check_fedavg(dev, gen):
+    """The stacked fold (``aggregate_flat``: one launch up to 64 sets,
+    ordered chunks past them) at N 1-130 and T 141,953 (odd: the scalar
+    loop) and 141,952 (T % 4 == 0: the 16-byte route): within 1e-6 of
+    ``agg_ref``, bit for bit the fold by leaves of the same rows (the same
+    FMAs in set order, chunks as ``fold_chunks``), zero-weight padding
+    exact; timed at N 2 on both T beside ``w @ stacked``."""
     import torch
     from repro_torch.core.aggregation import _pad_pow2
     from repro_torch.kernels.fedavg_agg import ops
     from repro_torch.kernels.fedavg_agg.ref import agg_ref
 
-    t = SOLAR_PARAMS
     err = 0.0
-    for n in (2, 3, 4, 32, 128):
-        x = torch.randn(n, t, generator=gen, device=dev)
-        w = torch.rand(n, generator=gen, device=dev)
-        ws = (w / w.sum()).tolist()
-        ref = agg_ref(x, ws)
-        err = max(err, (ops.aggregate_flat(x, ws) - ref).abs().max().item())
-        # zero-weight power-of-two padding must not move the result
-        rows, pws = _pad_pow2(list(x), ws)
-        padded = ops.aggregate_flat(torch.stack(rows), pws)
-        err = max(err, (padded - ref).abs().max().item())
+    for t in (SOLAR_PARAMS, SOLAR_PARAMS - 1):
+        for n in (1, 2, 3, 4, 32, 64, 65, 128, 130):
+            x = torch.randn(n, t, generator=gen, device=dev)
+            w = torch.rand(n, generator=gen, device=dev)
+            ws = (w / w.sum()).tolist()
+            before = ops.launches_stacked
+            got = ops.aggregate_flat(x, ws)
+            launches = ops.launches_stacked - before
+            require(launches == 1 + max(0, -(-(n - ops.MAX_N)
+                                             // (ops.MAX_N - 1))),
+                    f"fedavg_agg stacked N={n}: {launches} launches")
+            require(torch.equal(got, ops.aggregate_leaves(
+                [[row] for row in x], ws)), f"fedavg_agg stacked N={n} "
+                f"T={t}: other bits than the fold by leaves")
+            err = max(err, (got - agg_ref(x, ws)).abs().max().item())
+            if n in (2, 3, 32):
+                # zero-weight power-of-two padding must not move the result
+                rows, pws = _pad_pow2(list(x), ws)
+                require(torch.equal(ops.aggregate_flat(torch.stack(rows),
+                                                       pws), got),
+                        f"fedavg_agg stacked N={n}: padding moved the fold")
     require(err <= 1e-6, f"fedavg_agg max abs err {err} > 1e-6")
-    x = torch.randn(2, t, generator=gen, device=dev)
-    ws = [0.375, 0.625]
-    w_row = torch.tensor([ws], device=dev)
+    print(f"[kernels] fedavg_agg stacked: N 1-130 at T {SOLAR_PARAMS} and "
+          f"{SOLAR_PARAMS - 1} bit for bit the fold by leaves, max abs err "
+          f"{err:.3e} against agg_ref (limit 1e-6)")
+    out = {}
+    for t, key in ((SOLAR_PARAMS, ""), (SOLAR_PARAMS - 1, "t4_")):
+        x = torch.randn(2, t, generator=gen, device=dev)
+        ws = [0.375, 0.625]
+        w_row = torch.tensor([ws], device=dev)
+        symbol = "fedavg_agg_vec4_kernel" if key else "fedavg_agg_kernel"
+        out.update({
+            f"{key}ms": cuda_ms(lambda: ops.aggregate_flat(x, ws)),
+            f"{key}device_ms": device_ms(
+                "fedavg_agg", lambda: ops.aggregate_flat(x, ws),
+                symbols=(symbol,)),
+            f"{key}library_ms": cuda_ms(lambda: torch.matmul(w_row, x))})
+    t = SOLAR_PARAMS
     nbytes, flops = (2 * t + t) * 4, 2 * 2 * t
     bms, by = bound(nbytes, flops)
-    return {"max_abs_err": err, "shape": f"N=2, T={t}",
-            "ms": cuda_ms(lambda: ops.aggregate_flat(x, ws)),
-            "device_ms": device_ms("fedavg_agg",
-                                   lambda: ops.aggregate_flat(x, ws),
-                                   symbols=("fedavg_agg_kernel",)),
-            "plain_ms": cuda_ms(lambda: agg_ref(x, ws)),
-            "library_ms": cuda_ms(lambda: torch.matmul(w_row, x)),
+    x = torch.randn(2, t, generator=gen, device=dev)
+    return {"max_abs_err": err, "shape": f"N=2, T={t} (t4_ keys: T={t - 1})",
+            **out, "plain_ms": cuda_ms(lambda: agg_ref(x, [0.375, 0.625])),
             "bound_ms": bms, "bound_by": by}
 
 
@@ -1500,10 +1543,10 @@ def check_local_attn_bwd(dev, gen):
     f32, launch.train's (LAUNCH_ATTN) in f32, RecurrentGemma's window 2048
     at S 4096 and the padded head dims 80 and 192, against the plain VJP
     and the f64 VJP, twice for the bits, bf16 at D 64-256 on the
-    tensor-core route; timed at gemma-2b's shape on both routes and at
-    launch.train's in f32, each beside SDPA's forward + backward in its
-    dtype (the main keys bf16, the ``f32_`` keys the CUDA-core route, the
-    ``launch_f32_`` keys launch.train's shape)."""
+    tensor-core route, the rest on split tf32; timed at gemma-2b's shape on
+    both routes and at launch.train's in f32, each beside SDPA's forward +
+    backward in its dtype (the main keys bf16, the ``f32_`` keys the
+    split-tf32 route, the ``launch_f32_`` keys launch.train's shape)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn import ops
@@ -1515,7 +1558,7 @@ def check_local_attn_bwd(dev, gen):
         return torch.autograd.grad(out, live, dout)
 
     b, s = LLM_TRAIN["gemma-2b"]
-    err = 0.0
+    err = err_tf32 = 0.0
     for (nb, h, kv, seq, d, causal, window, dtype) in ATTN_BWD_CASES:
         dtype = getattr(torch, dtype)
         q, dout = (torch.randn(nb, h, seq, d, generator=gen, device=dev)
@@ -1523,21 +1566,27 @@ def check_local_attn_bwd(dev, gen):
         k, v = (torch.randn(nb, kv, seq, d, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         kw = dict(causal=causal, window=window, scale=d ** -0.5)
-        before = (ops.launches_bwd, ops.launches_bwd_tc)
+        before = (ops.launches_bwd, ops.launches_bwd_tc,
+                  ops.launches_bwd_tf32)
         got = grads(q, k, v, dout, kw)
-        tc = ops.route(dtype, d) == "tc"
-        require((ops.launches_bwd, ops.launches_bwd_tc) == (
-            before[0] + 1, before[1] + tc), "local_attn backward: "
-            f"{ops.launches_bwd - before[0]} launches for one gradient, "
-            f"{ops.launches_bwd_tc - before[1]} on the tensor cores")
+        tc = ops.route(dtype, d) == "tc"    # else split tf32
+        require((ops.launches_bwd, ops.launches_bwd_tc,
+                 ops.launches_bwd_tf32) == (
+            before[0] + 1, before[1] + tc, before[2] + (not tc)),
+            f"local_attn backward: {ops.launches_bwd - before[0]} launches "
+            f"for one gradient, {ops.launches_bwd_tc - before[1]} on wgmma, "
+            f"{ops.launches_bwd_tf32 - before[2]} on split tf32")
         tag = (f"local_attn backward B={nb} H={h} KV={kv} S={seq} D={d} "
                f"window={window} {dtype} ({ops.route(dtype, d)} route)")
-        err = max(err, hold_bwd(
+        e = hold_bwd(
             tag, ("dq", "dk", "dv"), got, grads(q, k, v, dout, kw),
             local_attention_bwd_ref(q, k, v, dout, **kw),
             local_attention_bwd_ref(q.double(), k.double(), v.double(),
                                     dout.double(), **kw),
-            BWD_RTOL if dtype == torch.float32 else BWD_BF16_RTOL))
+            BWD_RTOL if dtype == torch.float32 else BWD_BF16_RTOL)
+        err = max(err, e)
+        if not tc:
+            err_tf32 = max(err_tf32, e)
         del got
         torch.cuda.empty_cache()
     out = {}
@@ -1570,9 +1619,11 @@ def check_local_attn_bwd(dev, gen):
                 for a, w in zip(library(), fwd_bwd(), strict=True)]
         require(all(e <= lim for e, lim in gaps), "the SDPA yardstick's "
                 f"{dtype} gradient is another function: {gaps}")
-        before = ops.launches_bwd_tc
+        before = (ops.launches_bwd_tc, ops.launches_bwd_tf32)
         kernel()
-        require(ops.launches_bwd_tc - before == (dtype == torch.bfloat16),
+        require((ops.launches_bwd_tc - before[0],
+                 ops.launches_bwd_tf32 - before[1]) == (
+                     (1, 0) if dtype == torch.bfloat16 else (0, 1)),
                 f"local_attn backward {dtype} took the wrong route")
         small = key == "launch_f32_"
         out.update({
@@ -1595,11 +1646,18 @@ def check_local_attn_bwd(dev, gen):
             bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
             gflop, gbytes = flops / 1e9, nbytes / 1e9
         else:
-            out[f"{key}bound_ms"], out[f"{key}bound_by"] = bound(nbytes,
-                                                                 flops)
+            # the route's products run on the tf32 tensor cores, each as
+            # ops.TF32_PRODUCTS partial products; the f32 CUDA cores'
+            # bound for the same products is kept beside it
+            cuda_core = bound(nbytes, flops)
+            out[f"{key}bound_ms"], out[f"{key}bound_by"] = min(
+                cuda_core, bound(nbytes, flops * ops.TF32_PRODUCTS,
+                                 TF32_TC_FLOP_PER_S))
+            out[f"{key}cuda_core_bound_ms"] = cuda_core[0]
+            out[f"{key}products"] = ops.TF32_PRODUCTS
         del q, k, v, dout, lse
         torch.cuda.empty_cache()
-    return {"max_abs_err": err,
+    return {"max_abs_err": err, "f32_max_abs_err": err_tf32,
             "shape": f"B={b}, H=8, KV=1, S={s}, D=256, causal, bf16 "
                      "(f32_ keys: f32)",
             "launch_shape": f"B={lb}, H={lh}, KV={lkv}, S={ls}, D={ld}, "
@@ -1701,8 +1759,7 @@ def phase_kernels(dev) -> dict:
                   f"its own device time, plain {more['plain_ms']:.5f} ms, "
                   f"library {more['library_ms']} ms, bound "
                   f"{more['bound_ms']:.6f} ms ({more['bound_by']})")
-            res.update({f"{tag}_{k}": v for k, v in more.items()
-                        if k not in ("bound_by",)})
+            res.update({f"{tag}_{k}": v for k, v in more.items()})
             res["max_abs_err"] = max(res["max_abs_err"], more["max_abs_err"])
         results[name] = res
     results["lstm_cell"]["step_route_launches"] = check_lstm_step_route(dev)
@@ -1788,7 +1845,8 @@ def route_counts(calls) -> dict:
 
     return {"lstm_seq_fwd": lstm_ops.launches_seq_fwd,
             "lstm_seq_bwd": lstm_ops.launches_seq_bwd,
-            "fedavg_agg_leaves": agg_ops.launches_leaves, **calls}
+            "fedavg_agg_leaves": agg_ops.launches_leaves,
+            "fedavg_agg_stacked": agg_ops.launches_stacked, **calls}
 
 
 def counted_run(dev, cfg):
@@ -4236,6 +4294,10 @@ def check_llm_grads(dev, arch, model, cfg, params, batch, cpu):
     require(bwd == kernel_blocks(cfg), f"{arch}: {bwd} {kernel} backward "
                                        f"launches, expected "
                                        f"{kernel_blocks(cfg)}")
+    if kernel == "local_attn":      # f32: every backward on split tf32
+        tf32 = path_counts()["local_attn_bwd_tf32"]
+        require(tf32 == bwd, f"{arch}: {tf32} of {bwd} local_attn backward "
+                             "launches on the split-tf32 route")
     require(len(grads) == len(cpu["grads"]), f"{arch}: {len(grads)} leaves "
             f"on the card, {len(cpu['grads'])} on the CPU")
     worst = 0.0
@@ -4483,16 +4545,20 @@ def phase_example():
 # ----------------------------------------------------------------- phase 14
 def path_counts() -> dict:
     """Every wrapper's ``launches``, the backward kernels' own
-    (``launches_bwd``, as ``<kernel>_bwd``) and local_attn's tensor-core
-    routes (``local_attn_tc``, ``local_attn_bwd_tc``)."""
+    (``launches_bwd``, as ``<kernel>_bwd``), local_attn's routes
+    (``local_attn_tc``, ``local_attn_bwd_tc``, ``local_attn_bwd_tf32``) and
+    the stacked fold's (``fedavg_agg_stacked``)."""
     from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.fedavg_agg import ops as agg_ops
     from repro_torch.kernels.local_attn import ops as attn_ops
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
     return {**launch_counts(), "ssd_chunk_bwd": ssd_ops.launches_bwd,
             "local_attn_bwd": attn_ops.launches_bwd,
             "local_attn_bwd_tc": attn_ops.launches_bwd_tc,
-            "local_attn_tc": attn_ops.launches_tc}
+            "local_attn_bwd_tf32": attn_ops.launches_bwd_tf32,
+            "local_attn_tc": attn_ops.launches_tc,
+            "fedavg_agg_stacked": agg_ops.launches_stacked}
 
 
 def add_counts(total: dict, more: dict) -> dict:
@@ -4854,10 +4920,10 @@ def cluster_parallel_round(dev) -> dict:
 
 def launchers(dev) -> dict:
     """``launch.train.main`` (reduced gemma-2b, f32: the f32 local_attn
-    forward and backward kernels) and ``launch.serve.main`` at its
+    forward and the split-tf32 backward) and ``launch.serve.main`` at its
     defaults, in process on the card: finite losses, one f32 forward and
-    one f32 backward local_attn launch a layer a step, tokens within the
-    vocabulary.  Returns the two runs' launches."""
+    one split-tf32 backward local_attn launch a layer a step, tokens
+    within the vocabulary.  Returns the two runs' launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced_for_smoke
@@ -4873,6 +4939,7 @@ def launchers(dev) -> dict:
     want = {name: 0 for name in path_counts()}
     want["local_attn"] = 2 * steps * cfg.n_layers
     want["local_attn_bwd"] = steps * cfg.n_layers
+    want["local_attn_bwd_tf32"] = steps * cfg.n_layers   # f32: split tf32
     torch.cuda.synchronize()
     reset_launch_counts()
     _, losses = train.main([*LAUNCH_TRAIN, "--device", dev.type])
@@ -4998,12 +5065,15 @@ def main() -> int:
                  "bound_by", "library_ms")
     route_keys = {"lstm_cell": ("lstm_seq_fwd", "lstm_seq_bwd"),
                   "fedavg_agg": ("fedavg_agg_leaves",)}
+    route_extra = {"local_attn_bwd_tf32": ("cuda_core_bound_ms",
+                                           "products")}
     count_keys = {"ssd_chunk": ("ssd_chunk_bwd",),
                   "local_attn": ("local_attn_tc", "local_attn_bwd"),
-                  "local_attn_bwd": ("local_attn_bwd_tc",)}
+                  "local_attn_bwd": ("local_attn_bwd_tc",
+                                     "local_attn_bwd_tf32")}
     by_path = {name: {p: c.get(name, 0) for p, c in counts.items()}
                for name in (*KERNEL_META, "local_attn_tc",
-                            "local_attn_bwd_tc")}
+                            "local_attn_bwd_tc", "local_attn_bwd_tf32")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": sum(by_path[name].values()),
@@ -5016,6 +5086,16 @@ def main() -> int:
                 **{k: v for k, v in results[name].items()
                    if k not in main_keys}}
                for name, (src, replaces) in KERNEL_META.items()]
+    for name, (parent, prefix, src) in ROUTE_META.items():
+        by = {p: c.get(name, routes.get(p, {}).get(name, 0))
+              for p, c in counts.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": KERNEL_META[parent][1],
+                        "launches": sum(by.values()), "launches_by_path": by,
+                        **{k: results[parent][prefix + k]
+                           for k in main_keys},
+                        **{k: results[parent][prefix + k]
+                           for k in route_extra.get(name, ())}})
     print(f"[done] {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -50,7 +50,8 @@ SIGNATURES = {
                           _I, _I, _P, _P],
     "local_attn_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              *[_L] * 12, _F, _I, _I, _P, _P],
-    "local_attn_bwd_launch": [*[_P] * 10, *[_I] * 6, _F, _I, _I, _I, _P],
+    "local_attn_bwd_tf32_launch": [*[_P] * 11, *[_I] * 6, _F, *[_I] * 3,
+                                   _P],
     "local_attn_bwd_tc_launch": [*[_P] * 10, *[_I] * 6, *[_L] * 12, _F, _I,
                                  _I, _P],
     "lstm_seq_fwd_launch": [*[_P] * 6, *[_I] * 6, *[_P] * 5, _P],

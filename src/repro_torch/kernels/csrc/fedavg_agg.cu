@@ -14,8 +14,13 @@
 // coalesced.  The weights travel by value in the launch parameters (no
 // host-to-device copy, no extra allocation); N is capped at FEDAVG_MAX_N, and
 // the wrapper folds more sets in ordered chunks, each chunk behind the
-// running sum at weight 1.0 (fedavg_agg/ops.py fold_chunks).  A zero weight (the _pad_pow2 padding) adds an
-// exact 0.0f, so padded folds give the unpadded result.
+// running sum at weight 1.0 (fedavg_agg/ops.py fold_chunks).  A zero
+// weight (the _pad_pow2 padding) adds an exact 0.0f, so padded folds give
+// the unpadded result.  Where T % 4 == 0 and the stack and the output are
+// 16-byte aligned, fedavg_agg_vec4_kernel reads 16 bytes a row a thread
+// (four columns, each with the same FMA chain in set order); the main
+// path's T (141,953) is odd and keeps the scalar loop.  At N 2 the call is
+// host-bound (tools/fold_wrapper_split.py splits it).
 //
 // fedavg_agg_leaves_kernel folds the N parameter trees where their leaves
 // lie, with no flatten and no stack: a LeafFold table passed by value
@@ -59,6 +64,28 @@ __global__ void fedavg_agg_kernel(const float* __restrict__ x, FoldWeights w,
   }
 }
 
+// four columns a thread by 16-byte loads: x and out 16-byte aligned, t4 =
+// T / 4 float4s a row
+__global__ void fedavg_agg_vec4_kernel(const float4* __restrict__ x,
+                                       FoldWeights w, int n, int64_t t4,
+                                       float4* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < t4;
+       j += stride) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = 0; i < n; ++i) {
+      const float4 v = x[(int64_t)i * t4 + j];
+      acc.x = fmaf(w.w[i], v.x, acc.x);
+      acc.y = fmaf(w.w[i], v.y, acc.y);
+      acc.z = fmaf(w.w[i], v.z, acc.z);
+      acc.w = fmaf(w.w[i], v.w, acc.w);
+    }
+    out[j] = acc;
+  }
+}
+
+// weights: n packed floats (the wrapper's bytes), copied into the launch's
+// parameters
 extern "C" int fedavg_agg_launch(const float* x, const float* weights, int n,
                                  long long t, float* out, void* stream) {
   if (n < 1 || n > FEDAVG_MAX_N || t < 1) {
@@ -68,10 +95,18 @@ extern "C" int fedavg_agg_launch(const float* x, const float* weights, int n,
   for (int i = 0; i < FEDAVG_MAX_N; ++i) {
     w.w[i] = i < n ? weights[i] : 0.0f;
   }
-  long long blocks = (t + FEDAVG_THREADS - 1) / FEDAVG_THREADS;
+  const bool vec = t % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+                   ((uintptr_t)out & 15) == 0;
+  const long long cols = vec ? t / 4 : t;
+  long long blocks = (cols + FEDAVG_THREADS - 1) / FEDAVG_THREADS;
   if (blocks > FEDAVG_MAX_BLOCKS) blocks = FEDAVG_MAX_BLOCKS;
-  fedavg_agg_kernel<<<(unsigned)blocks, FEDAVG_THREADS, 0,
-                      (cudaStream_t)stream>>>(x, w, n, (int64_t)t, out);
+  if (vec)
+    fedavg_agg_vec4_kernel<<<(unsigned)blocks, FEDAVG_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const float4*)x, w, n, (int64_t)cols, (float4*)out);
+  else
+    fedavg_agg_kernel<<<(unsigned)blocks, FEDAVG_THREADS, 0,
+                        (cudaStream_t)stream>>>(x, w, n, (int64_t)t, out);
   return (int)cudaGetLastError();
 }
 

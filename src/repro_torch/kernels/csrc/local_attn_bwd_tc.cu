@@ -1,7 +1,7 @@
 // Gradient of the windowed causal / bidirectional flash attention with GQA
 // on Hopper's tensor cores, for bf16 q, k, v, dout at head_dim D of 64, 128
 // or 256 (the forward's tensor-core route, local_attn_tc.cu).  The
-// function is local_attn_bwd.cu's:
+// function is local_attn_bwd_tf32.cu's:
 //   P_st = exp(scale q_s . k_t - lse_s) where allowed (t < T, causal:
 //   t <= s, window: t > s - window), else 0; lse (B, H, S) f32 is the
 //   forward's row log-sum-exp;
@@ -11,7 +11,7 @@
 // q, dout (B, H, S, D) and k, v (B, KV, T, D) are read by their strides
 // (last dimension contiguous); dq (B, H, S, D), dk and dv (B, KV, T, D)
 // are written dense, bf16.  f32 calls, and bf16 at D 16 or 32, take the
-// CUDA-core kernels of local_attn_bwd.cu; the wrapper
+// split-tf32 kernels of local_attn_bwd_tf32.cu; the wrapper
 // (kernels/local_attn/ops.py, route()) chooses, as for the forward.
 //
 // Replaces the gradient of the Pallas kernel
@@ -457,11 +457,10 @@ local_attn_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap kmap,
 }
 
 // local_attn_bwd.cu: dk = scale sum_g dk_head, dv = sum_g dv_head in head
-// order in f64, bf16 out
-int local_attn_bwd_fold_bf16(const float* dk_head, const float* dv_head,
-                             void* dk, void* dv, int64_t total, int g,
-                             int64_t head_stride, float scale,
-                             cudaStream_t s);
+// order in f64, out in dtype (1: bf16)
+int local_attn_bwd_fold(const float* dk_head, const float* dv_head, void* dk,
+                        void* dv, int64_t total, int g, int64_t head_stride,
+                        float scale, int dtype, cudaStream_t s);
 
 template <int D>
 static int tb_launch(const void* q, const void* k, const void* v,
@@ -530,9 +529,9 @@ static int tb_launch(const void* q, const void* k, const void* v,
           scale_log2, causal, window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return local_attn_bwd_fold_bf16(dk_head, dv_head, dk, dv,
-                                  (int64_t)B * KV * per_head, H / KV,
-                                  per_head, scale, stream);
+  return local_attn_bwd_fold(dk_head, dv_head, dk, dv,
+                             (int64_t)B * KV * per_head, H / KV, per_head,
+                             scale, 1, stream);
 }
 
 // bf16 only; D must be 64, 128 or 256.  Strides are in elements, (batch,

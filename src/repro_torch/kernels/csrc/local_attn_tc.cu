@@ -251,7 +251,7 @@ local_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // the rows' log-sum-exp of the scaled scores, for the backward
-  // (local_attn_bwd.cu); a quad's four lanes hold the same m and l
+  // (local_attn_bwd_tc.cu); a quad's four lanes hold the same m and l
   if (lse != nullptr && (lane & 3) == 0) {
     float* lrow = lse + ((int64_t)bb * H + hh) * S;
     if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * TC_LN2;

@@ -9,13 +9,23 @@ leaf kernel for up to 64 trees of up to 16 leaves (the forecaster has 8;
 holds (the stacked kernel, or ``ref.agg_ref``).  Both kernels add in set
 order with the same FMAs, so the routes agree bit for bit.
 
+The stacked route's host path is what its launch needs: up to ``MAX_N``
+sets go straight to one launch (``fold_chunks`` only past that), the
+weights travel as bytes packed by a ``struct.Struct`` kept for each count
+(no ctypes array a call), the checks are the device, dtype, rank and
+layout tests the kernel relies on, and the output comes from
+``new_empty`` (``tools/fold_wrapper_split.py`` times each piece on the
+card).
+
 ``launches`` counts both kernels' launches, ``launches_leaves`` the leaf
-kernel alone (kept out of ``kernels.launch_counts()``).
+kernel alone and ``launches_stacked`` the stacked one (both kept out of
+``kernels.launch_counts()``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -28,6 +38,9 @@ MAX_PTRS = 1024     # FOLD_MAX_PTRS: leaf pointers in one LeafFold table
 MAX_LEAVES = 16     # FOLD_MAX_LEAVES
 launches = 0
 launches_leaves = 0
+launches_stacked = 0
+# the weights of a stacked launch as n packed f32 (the C side's float*)
+_PACKS = tuple(struct.Struct(f"{n}f") for n in range(MAX_N + 1))
 
 
 class LeafFold(ctypes.Structure):
@@ -56,24 +69,27 @@ def fold_chunks(stacked: torch.Tensor, ws: list, fold) -> torch.Tensor:
 
 def _launch(stacked: torch.Tensor, ws: list) -> torch.Tensor:
     n, t = stacked.shape
-    out = torch.empty(t, dtype=torch.float32, device=stacked.device)
+    out = stacked.new_empty(t)
     status = build.library().fedavg_agg_launch(
-        stacked.data_ptr(), (ctypes.c_float * n)(*ws), n, t, out.data_ptr(),
+        stacked.data_ptr(), _PACKS[n].pack(*ws), n, t, out.data_ptr(),
         build.stream_handle(stacked.device))
-    build.check(status, "fedavg_agg")
-    build.count(__name__, "launches")
+    if status:
+        build.check(status, "fedavg_agg")
+    build.count(__name__, "launches", "launches_stacked")
     return out
 
 
 def aggregate_flat(stacked: torch.Tensor, weights) -> torch.Tensor:
     """stacked: (N, T) f32; weights: N floats -> (T,) f32 weighted sum.
-    On CUDA, more than ``MAX_N`` sets fold in ordered chunks (one launch
-    each, see ``fold_chunks``)."""
-    if not build.on_cuda("fedavg_agg", stacked):
+    On CUDA, up to ``MAX_N`` sets are one launch; more fold in ordered
+    chunks (one launch each, see ``fold_chunks``)."""
+    if not stacked.is_cuda:
+        build.on_cuda("fedavg_agg", stacked)        # raises off the CPU
         return agg_ref(stacked, weights)
-    build.require_f32_contiguous("fedavg_agg", stacked=stacked)
-    if stacked.dim() != 2:
-        raise ValueError(f"fedavg_agg: stacked must be (N, T), got "
+    if stacked.dtype != torch.float32 or stacked.dim() != 2 \
+            or not stacked.is_contiguous():
+        raise ValueError(f"fedavg_agg: stacked must be a contiguous (N, T) "
+                         f"float32 tensor, got {stacked.dtype} "
                          f"{tuple(stacked.shape)}")
     n, t = stacked.shape
     ws = [float(w) for w in weights]
@@ -82,8 +98,10 @@ def aggregate_flat(stacked: torch.Tensor, weights) -> torch.Tensor:
     if n < 1:
         raise ValueError("fedavg_agg: needs at least one row")
     if t == 0:
-        return torch.empty(0, dtype=torch.float32, device=stacked.device)
-    return fold_chunks(stacked, ws, _launch)
+        return stacked.new_empty(0)
+    if n > MAX_N:
+        return fold_chunks(stacked, ws, _launch)
+    return _launch(stacked, ws)
 
 
 def pack_leaf_folds(ptrs: list, outs: list, lengths: list,

@@ -1,17 +1,18 @@
 """Public wrapper of the windowed flash attention: CUDA tensors launch one
 of two kernels, CPU tensors run ``ref.local_attention_ref``.
 
-``route`` picks the kernel from the dtype and head_dim alone:
+``route`` picks the kernels from the dtype and head_dim alone:
 
 - ``"tc"``: bf16 at D 64, 128 or 256 runs ``csrc/local_attn_tc.cu`` on the
   tensor cores.  It reads q, k, v and writes the output by their strides
   (last dimension contiguous), and TMA fills rows past S or T with zeros,
   so nothing is padded or copied; the output takes q's layout.
-- ``"cuda_core"``: every f32 call, and bf16 at D 16 or 32, runs
+- ``"tf32"`` (every f32 call, and bf16 at D 16 or 32): the forward runs
   ``csrc/local_attn.cu`` in f32 on the CUDA cores.  As the reference's
   ``local_flash_attention``, the wrapper pads S and T to its tiles and
-  passes the unpadded T as ``t_real``; the kernel masks the padded keys and
-  the wrapper drops the padded rows.
+  passes the unpadded T as ``t_real``; the kernel masks the padded keys
+  and the wrapper drops the padded rows.  The route is named for its
+  backward, split tf32 on the tensor cores.
 
 A head dim between the instantiations (hubert-xlarge's 80, MLA's 192) is
 zero-padded on the last dim of q, k and v to the next one
@@ -29,9 +30,12 @@ the forward's route (``route`` decides both):
   dP, the dv and the dk pass, a query head a CTA, and the fold of a kv
   head's query heads in order); q, k, v and dout by their strides, as the
   forward reads them.
-- ``"cuda_core"``: ``csrc/local_attn_bwd.cu`` in f32 on the CUDA cores (one
-  C call: the dq kernel with its own delta pass, the dk/dv kernel and the
-  same fold); dense inputs.
+- ``"tf32"``: ``csrc/local_attn_bwd_tf32.cu`` on the
+  tensor cores in split tf32 (one C call: the dq kernel, whose first pass
+  sums each row's P and P dP, the dk/dv kernel, a query head a CTA, and
+  the same fold); dense inputs.  ``TF32_PRODUCTS`` partial products a
+  product, two-part splits (``tests/test_torch_attn_bwd_tf32.py``
+  emulates the scheme).
 CPU tensors run ``ref.local_attention_bwd_ref``.  The D padding stays
 outside the Function, so its gradient is PyTorch's.
 
@@ -42,7 +46,7 @@ and head_dim are gathered first.  The backward runs on the shards too.
 
 ``launches`` counts every launch, forward and backward; ``launches_tc``
 the forward's tensor-core route; ``launches_bwd`` the backward's, and
-``launches_bwd_tc`` its tensor-core route's.
+``launches_bwd_tc`` and ``launches_bwd_tf32`` its two routes'.
 """
 
 from __future__ import annotations
@@ -65,6 +69,10 @@ launches = 0
 launches_tc = 0
 launches_bwd = 0
 launches_bwd_tc = 0
+launches_bwd_tf32 = 0
+# the split-tf32 backward's partial products a product
+# (csrc/local_attn_bwd_tf32.cu, LT_PARTS 2: three)
+TF32_PRODUCTS = 3
 
 
 def padded_head_dim(head_dim: int) -> int:
@@ -87,11 +95,12 @@ def pad_head_dim(q, k, v):
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: ``"tc"`` (bf16 on the tensor cores) or
-    ``"cuda_core"`` (f32 inside, on the CUDA cores)."""
+    """The kernels a CUDA call takes: ``"tc"`` (bf16 on the tensor cores,
+    both ways) or ``"tf32"`` (f32, and bf16 at D 16 or 32: the CUDA-core
+    forward, the split-tf32 backward)."""
     if dtype == torch.bfloat16 and padded_head_dim(head_dim) in TC_HEAD_DIMS:
         return "tc"
-    return "cuda_core"
+    return "tf32"
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
@@ -222,19 +231,19 @@ def local_attention_bwd(q, k, v, lse, dout, *, causal: bool, window: int,
         build.check(status, "local_attn backward")
         build.count(__name__, "launches", "launches_bwd", "launches_bwd_tc")
         return dq, dk, dv
-    # the CUDA-core kernels read rows by 16-byte loads: dense and aligned
+    # the split-tf32 kernels read rows by 16-byte copies: dense and aligned
     q, k, v, dout = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                      else t.clone(memory_format=torch.contiguous_format)
                      for t in (q, k, v, dout))
+    rinv = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     status = build.launch_sized(
-        "local_attn_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), heads.data_ptr(), B, H, KV, S, T,
-        D, float(scale),
-        int(bool(causal)), int(window), _DTYPES[q.dtype],
-        build.stream_handle(q.device))
+        "local_attn_bwd_tf32_launch", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), rinv.data_ptr(),
+        heads.data_ptr(), B, H, KV, S, T, D, float(scale), int(bool(causal)),
+        int(window), _DTYPES[q.dtype], build.stream_handle(q.device))
     build.check(status, "local_attn backward")
-    build.count(__name__, "launches", "launches_bwd")
+    build.count(__name__, "launches", "launches_bwd", "launches_bwd_tf32")
     return dq, dk, dv
 
 

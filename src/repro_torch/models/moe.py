@@ -15,6 +15,14 @@ Two points where the port spells out what XLA leaves to its scatter:
   the same winner (the largest flat index of the writers of each slot)
   with an order-free ``amax``, so the CPU and CUDA dispatch equal the
   reference's whether or not a slot collides.
+- On a ``DeviceMesh`` (DTensor ids) the router's bookkeeping -- the
+  per-expert count and ``dispatch`` -- runs under one ``local_map`` on
+  replicated ids (``_bookkeeping_on_mesh``): every rank routes the whole
+  batch, as the reference's.  DTensor has no sharding rule for
+  ``bincount`` or ``searchsorted``; the count there is ``expert_counts``, a
+  ``scatter_add`` of ones that also runs on the dry-run's ``meta`` shards
+  and equals ``bincount`` bit for bit (integer sums are exact in f32 below
+  2^24).
 - The experts' outputs go back to their tokens by a gather of each
   token's K slots, summed one slot at a time in the order of their slot
   index (expert ascending), the order of the reference's scatter-add.  No
@@ -100,6 +108,29 @@ def dispatch(flat_e, n_experts: int, capacity: int):
     return keep, slot, winner[:n_experts * capacity]
 
 
+def expert_counts(flat_e, n_experts: int):
+    """``torch.bincount(flat_e, minlength=n_experts)`` as f32, by a
+    ``scatter_add`` of ones (an op ``meta`` tensors also run)."""
+    ones = torch.ones(flat_e.shape, dtype=torch.float32, device=flat_e.device)
+    return torch.zeros(n_experts, dtype=torch.float32,
+                       device=flat_e.device).scatter_add_(0, flat_e, ones)
+
+
+def _bookkeeping_on_mesh(flat_e, n_experts: int, capacity: int):
+    """(counts, keep, slot, winner) of DTensor ids, replicated on every
+    mesh dim and computed shard by shard through ``local_map``."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = flat_e.device_mesh
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    run = local_map(
+        lambda e: (expert_counts(e, n_experts), *dispatch(e, n_experts,
+                                                          capacity)),
+        out_placements=(rep,) * 4, in_placements=(rep,), device_mesh=mesh)
+    return run(flat_e.redistribute(mesh, rep))
+
+
 def moe_forward(cfg: ModelConfig, p: dict, x, rules=None):
     """x: (b, s, d) -> (y, aux_loss)."""
     m = cfg.moe
@@ -114,7 +145,11 @@ def moe_forward(cfg: ModelConfig, p: dict, x, rules=None):
 
     # ---- load-balance auxiliary loss (Switch-style) -----------------------
     flat_e = top_e.reshape(-1)                                     # (T*K,)
-    counts = torch.bincount(flat_e, minlength=E).to(torch.float32)
+    if hasattr(flat_e, "device_mesh"):
+        counts, keep, slot, winner = _bookkeeping_on_mesh(flat_e, E, C)
+    else:
+        counts = torch.bincount(flat_e, minlength=E).to(torch.float32)
+        keep, slot, winner = dispatch(flat_e, E, C)
     tokens_per_expert = counts / (T * K)                           # fraction
     router_prob = scores.mean(0)
     aux_loss = m.router_aux_coef * E * torch.sum(tokens_per_expert * router_prob)
@@ -122,7 +157,6 @@ def moe_forward(cfg: ModelConfig, p: dict, x, rules=None):
     # ---- capacity-based dispatch ------------------------------------------
     flat_w = gate_w.reshape(-1)
     flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
-    keep, slot, winner = dispatch(flat_e, E, C)
     src = torch.clamp(winner, min=0)
     dispatch_valid = (winner >= 0) & keep[src]
     dispatch_tok = torch.where(dispatch_valid, flat_tok[src], 0)

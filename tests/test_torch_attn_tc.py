@@ -133,7 +133,7 @@ def test_tc_scheme_row_whose_first_tile_is_masked(rng):
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_route_is_a_function_of_dtype_and_head_dim(dtype, D):
-    want = "tc" if dtype == torch.bfloat16 and D >= 64 else "cuda_core"
+    want = "tc" if dtype == torch.bfloat16 and D >= 64 else "tf32"
     assert route(dtype, D) == want
     assert TC_HEAD_DIMS == (64, 128, 256)
 

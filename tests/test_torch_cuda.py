@@ -184,6 +184,24 @@ def test_fedavg_kernel_folds_more_than_64_sets(n, cuda):
     assert torch.equal(aggregate_flat(torch.stack(sets), pws), out)
 
 
+@pytest.mark.parametrize("t", [T, T - 1])          # odd; T % 4 == 0
+@pytest.mark.parametrize("n", [1, 2, 64, 65, 130])
+def test_fedavg_stacked_fold_is_the_leaves_fold_bit_for_bit(n, t, cuda):
+    """The stacked fold's one launch up to 64 sets (chunks past them), its
+    scalar loop at odd T and its 16-byte route at T % 4 == 0: the same FMAs
+    in set order as the fold by leaves, so the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + t)
+    x = randn(gen, n, t)
+    ws = torch.rand(n, generator=gen, device=cuda)
+    ws = (ws / ws.sum()).tolist()
+    before = agg_ops.launches_stacked
+    out = aggregate_flat(x, ws)
+    assert agg_ops.launches_stacked == before + 1 + max(
+        0, -(-(n - 64) // 63))
+    assert torch.equal(out, agg_ops.aggregate_leaves([[r] for r in x], ws))
+    torch.testing.assert_close(out, agg_ref(x, ws), rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("m", [0.0, 1.1])
 @pytest.mark.parametrize("case", ["binding", "inside", "zero", "nan"])
 @pytest.mark.parametrize("t", [1, 5, 8192, T, (1 << 20) + 3])

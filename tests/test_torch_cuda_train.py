@@ -116,15 +116,24 @@ def attn_grads(q, k, v, dout, **kw):
     (1, 2, 2, 100, 32, True, 0, torch.bfloat16),    # the CUDA-core bf16 route
     (1, 2, 1, 96, 80, False, 0, torch.float32),     # D padded to 128
     (1, 2, 1, 96, 192, True, 0, torch.bfloat16),    # D padded to 256
+    (1, 8, 1, 2000, 256, True, 0, torch.float32),   # S off every tile
+    (1, 8, 2, 200, 128, True, 0, torch.float32),    # GQA 4:1 at D 128
+    (1, 8, 2, 96, 32, True, 0, torch.float32),      # GQA 4:1 at D 32
+    (1, 4, 1, 70, 16, False, 0, torch.float32),     # D 16, bidirectional
+    (1, 2, 1, 70, 16, True, 20, torch.bfloat16),    # bf16 at D 16, a window
 ])
 def test_local_attn_backward_matches_plain_and_f64(B, H, KV, S, D, causal,
                                                    window, dtype, cuda):
     q, k, v, dout = attn_case(torch.Generator(device=cuda).manual_seed(S + D),
                               B, H, KV, S, D, dtype)
     kw = dict(causal=causal, window=window, scale=D ** -0.5)
-    before = attn_ops.launches_bwd
+    before = (attn_ops.launches_bwd, attn_ops.launches_bwd_tc,
+              attn_ops.launches_bwd_tf32)
     out, got = attn_grads(q, k, v, dout, **kw)
-    assert attn_ops.launches_bwd == before + 1
+    tc = attn_ops.route(dtype, D) == "tc"     # else the split-tf32 kernels
+    assert (attn_ops.launches_bwd, attn_ops.launches_bwd_tc,
+            attn_ops.launches_bwd_tf32) == (before[0] + 1, before[1] + tc,
+                                            before[2] + (not tc))
     _, again = attn_grads(q, k, v, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
     with torch.no_grad():            # scoring: the same bits, no statistics

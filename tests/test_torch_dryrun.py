@@ -17,6 +17,7 @@ import subprocess
 import sys
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -24,8 +25,25 @@ from repro.configs import INPUT_SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
 from repro.launch import dryrun as jax_dryrun
 from repro.launch.roofline import analytic_costs as jax_analytic_costs
-from repro_torch.configs import ALL_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.configs import (
+    ALL_ARCHS,
+    INPUT_SHAPES,
+    get_config,
+    reduced_for_smoke,
+)
+from repro_torch.data.lm_synth import lm_batch
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import host_world
+from repro_torch.models.model import build_model
+from repro_torch.models.moe import expert_counts
+from repro_torch.sharding.logical import (
+    distribute,
+    logical_to_spec,
+    make_rules,
+    on_mesh,
+    placements,
+    shardings_from_schema,
+)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -78,6 +96,60 @@ def test_dryrun_subprocess_decode_single_pod():
     assert rec["memory"]["argument_bytes"] > 0
     assert rec["memory"]["temp_bytes"] is None and rec["memory"]["note"]
     assert "hlo_raw_cost" not in rec
+
+
+@pytest.mark.parametrize("arch,shape,timeout", [
+    ("deepseek-moe-16b", "long_500k", 120),
+    ("deepseek-v3-671b", "decode_32k", 180),
+])
+def test_dryrun_subprocess_moe_routes_on_the_mesh(arch, shape, timeout):
+    rec = run_dryrun("--arch", arch, "--shape", shape, timeout=timeout)
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16"
+    jcfg = jax_get_config(arch)
+    want = jax_analytic_costs(
+        jcfg, JAX_SHAPES[shape], 256, {"data": 16, "model": 16},
+        remat="none", moment_bytes=4,
+        window_override=jcfg.long_context_window if shape == "long_500k"
+        else None, mla_absorb=True)
+    assert rec["analytic"] == want
+    assert rec["roofline"]["compute_s"] > 0
+
+
+@pytest.mark.parametrize("n,experts", [(0, 4), (1, 4), (96, 16), (4096, 64)])
+def test_expert_counts_equal_bincount(n, experts):
+    """The router's count on a mesh, a scatter_add of ones, is
+    ``torch.bincount(...).float()`` bit for bit (experts drawn or not), and
+    runs on meta tensors, which bincount cannot."""
+    ids = torch.from_numpy(np.random.default_rng(n).integers(
+        0, max(1, experts // 2), n)).long()
+    got = expert_counts(ids, experts)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.bincount(ids, minlength=experts).float())
+    meta = expert_counts(ids.to("meta"), experts)
+    assert meta.shape == (experts,) and meta.device.type == "meta"
+
+
+def test_moe_forward_on_a_one_rank_mesh_equals_the_plain_forward():
+    """Reduced deepseek-moe-16b with its parameters and tokens distributed
+    on a (1, 1) gloo mesh: the router's bookkeeping runs under local_map
+    on DTensor ids, and the logits equal the plain forward's exactly."""
+    from torch.distributed.tensor import distribute_tensor
+
+    cfg = reduced_for_smoke(get_config("deepseek-moe-16b"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(lm_batch(np.random.default_rng(0), 2, 16,
+                                    cfg.vocab_size)["tokens"])
+    base, _ = model.forward(params, tokens=toks)
+    with host_world("cpu") as mesh:
+        rules = make_rules(mesh)
+        placed = distribute(params, mesh, shardings_from_schema(
+            model.schema(), mesh, rules))
+        dtoks = distribute_tensor(toks, mesh, placements(logical_to_spec(
+            ("batch", "seq"), rules, tuple(toks.shape)), mesh))
+        with on_mesh():
+            out, _ = model.forward(placed, tokens=dtoks, rules=rules)
+        assert torch.equal(out.full_tensor(), base)
 
 
 def test_encoder_only_decode_is_skipped():

@@ -13,6 +13,8 @@ The kernels themselves are held against the plain versions on the card in
 ``tests/test_torch_cuda.py``.
 """
 
+import struct
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,13 +36,14 @@ from repro_torch.kernels import build, launch_counts, reset_launch_counts
 from repro_torch.kernels.ewc_update.ops import ewc_penalty_grad_flat
 from repro_torch.kernels.dp_clip_noise.ops import privatize_flat
 from repro_torch.kernels.ewc_update.ref import ewc_ref
+from repro_torch.kernels.fedavg_agg import ops as agg_ops
 from repro_torch.kernels.fedavg_agg.ops import (
     MAX_N,
     aggregate_flat,
     aggregate_pytrees,
     fold_chunks,
 )
-from repro_torch.kernels.fedavg_agg.ref import agg_ref
+from repro_torch.kernels.fedavg_agg.ref import agg_leaves_ref, agg_ref
 from repro_torch.kernels.lstm_cell.ops import LSTMCellFn, lstm_cell_fused, lstm_step
 from repro_torch.kernels.local_attn.ops import local_flash_attention
 from repro_torch.kernels.local_attn.ref import local_attention_ref
@@ -101,6 +104,90 @@ def test_agg_fold_chunks_equals_the_flat_fold(n, rng):
     assert torch.equal(out, agg_ref(t32(x), ws))
     ref = np.asarray(jax_agg_flat(jnp.asarray(x), jnp.asarray(ws, jnp.float32)))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+class CudaView(torch.Tensor):
+    """A CPU tensor (and its slices) that says it is on CUDA, so
+    ``aggregate_flat`` takes its CUDA route; ``new_empty`` (the output)
+    goes through ``keep``, which ``stacked_route`` sets."""
+
+    keep = None
+
+    @property
+    def is_cuda(self):
+        return True
+
+    def new_empty(self, *a, **kw):
+        return self.keep(torch.Tensor.new_empty)(self.as_subclass(
+            torch.Tensor), *a, **kw)
+
+
+def stacked_route(monkeypatch):
+    """Send CPU tensors down ``aggregate_flat``'s CUDA route with a Python
+    stand-in for the C call: it finds the rows by their pointer, unpacks
+    the weights from the bytes the wrapper packs, folds them in set order
+    as ``agg_ref`` does and writes the output by its pointer.  Returns the
+    tensors it can find and the launches seen, as (n, t, weights)."""
+    tensors, calls = [], []
+    real_cat = torch.cat
+
+    def keep(make):
+        def call(*a, **kw):
+            t = make(*a, **kw)
+            tensors.append(t)
+            return t
+        return call
+
+    def at(ptr, n):
+        for t in tensors:
+            off = (ptr - t.data_ptr()) // 4
+            if 0 <= off and off + n <= t.numel():
+                return t.reshape(-1)[off:off + n]
+        raise AssertionError(f"pointer {ptr} is no tensor of the call")
+
+    class Library:
+        def fedavg_agg_launch(self, x, weights, n, t, out, stream):
+            ws = list(struct.unpack(f"{n}f", weights))
+            at(out, t).copy_(agg_ref(at(x, n * t).reshape(n, t), ws))
+            calls.append((n, t, ws))
+            return 0
+
+    monkeypatch.setattr(CudaView, "keep", staticmethod(keep), raising=False)
+    monkeypatch.setattr(build, "library", lambda: Library())
+    monkeypatch.setattr(build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(agg_ops.torch, "cat", keep(real_cat))
+    return tensors, calls
+
+
+@pytest.mark.parametrize("t", [37, 40])          # T odd, T % 4 == 0
+@pytest.mark.parametrize("n", [1, 2, 64, 65, 130])
+def test_agg_stacked_host_path_packs_one_launch_up_to_64_sets(
+        n, t, rng, monkeypatch):
+    """The stacked route's host path, read back on the CPU: one launch of
+    all N sets up to MAX_N, ordered chunks past them (the first weight of a
+    later chunk 1.0, the running sum), the weights packed as f32 in set
+    order; the fold bit for bit ``agg_ref``, ``fold_chunks`` of the plain
+    fold and the fold by leaves."""
+    x = t32(rng.standard_normal((n, t)))
+    ws = rng.dirichlet(np.ones(n)).tolist()
+    want = agg_ref(x, ws)
+    chunked = fold_chunks(x, ws, agg_ref)
+    leaves = agg_leaves_ref([[row] for row in x], ws)
+    tensors, calls = stacked_route(monkeypatch)
+    tensors.append(x)
+    reset_launch_counts()
+    got = aggregate_flat(x.as_subclass(CudaView), ws).as_subclass(
+        torch.Tensor)
+    assert len(calls) == agg_ops.launches_stacked == agg_ops.launches == \
+        1 + max(0, -(-(n - MAX_N) // (MAX_N - 1)))
+    f32 = [struct.unpack("f", struct.pack("f", w))[0] for w in ws]
+    assert calls[0] == (min(n, MAX_N), t, f32[:MAX_N])
+    for i, (m, tt, w) in enumerate(calls[1:]):
+        lo = MAX_N + i * (MAX_N - 1)
+        assert (m, tt) == (len(w), t) and w == [1.0] + f32[lo:lo + m - 1]
+    assert torch.equal(got, want) and torch.equal(got, chunked)
+    assert torch.equal(got, leaves)
+    reset_launch_counts()
 
 
 def test_agg_pytrees_matches_jax(rng):

@@ -227,9 +227,9 @@ def test_local_attn_route_follows_the_padded_head_dim():
     bf16, f32 = torch.bfloat16, torch.float32
     assert [attn_ops.route(bf16, d) for d in (16, 32, 48, 80, 128, 192,
                                               256)] == \
-        ["cuda_core", "cuda_core", "tc", "tc", "tc", "tc", "tc"]
+        ["tf32", "tf32", "tc", "tc", "tc", "tc", "tc"]
     assert {attn_ops.route(f32, d) for d in (48, 80, 192, 256)} == \
-        {"cuda_core"}
+        {"tf32"}
     with pytest.raises(ValueError, match="head_dim 320"):
         attn_ops.padded_head_dim(320)
 
