@@ -12,10 +12,13 @@ Phases, each fatal on failure (non-zero exit, no final line):
              padded S 2000, kernel and plain version each against the
              same function in f64;
              local_attn at gemma-2b, B 2, S 2048 in bf16 (the tensor-core
-             route, also against the same function in f64) and f32, at
-             RecurrentGemma's window 2048, S 4096, and at launch.train's
-             shape in f32 (LAUNCH_ATTN: B 2, H 4, KV 1, S 64, D 64), timed
-             there too); the LSTM step's
+             route, ``ops.launches_tc``) and f32 (split tf32,
+             ``ops.launches_tf32``), at RecurrentGemma's window 2048, S
+             4096, and at launch.train's shape in f32 (LAUNCH_ATTN: B 2,
+             H 4, KV 1, S 64, D 64), each also against the same function
+             in f64 (ATTN_F64_FACTOR), timed on both routes at gemma-2b's
+             shape beside SDPA in the same dtype and at launch.train's);
+             the LSTM step's
              autograd.Function gradients against autograd of the plain
              cell; the whole-sequence LSTM kernels (forward and reverse
              scan) at the main path's shapes (B 8: T 672 with I 10, T 96
@@ -38,7 +41,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
              ssd_chunk with per-group B and C at two groups, n 160, p 80
              (chunks of 16 and 256) against its plain version and f64;
              local_attn at head dims 80 (f32, bf16) and 192 (bf16),
-             zero-padded to 128 and 256; the forecaster at hidden 6, 132
+             zero-padded to 128 and 256, against f64 too; the forecaster
+             at hidden 6, 132
              and 384 (the step route: 768 step launches, no sequence
              launch) forward and gradient against the CPU route; times of
              kernel (back to back, and its own device time from
@@ -189,9 +193,11 @@ Phases, each fatal on failure (non-zero exit, no final line):
              full width, depth 4, T 64; recurrentgemma-9b at depth 3 over
              T 2112, its 2048-slot rolling cache wrapping) for every decoder
              family, no kernel launched (MoE at a capacity that drops
-             nothing, ``dropless``); ragged equal to independent
+             nothing, ``dropless``; every local_attn launch of the f32
+             forward on the split-tf32 route); ragged equal to independent
              decoding in f32 at that depth (``ragged``); and the CUDA loss
-             and gradients (one backward launch a layer or attention block)
+             and gradients (one backward launch a layer or attention block,
+             every local_attn launch both ways on split tf32)
              against the CPU child's from the same weights and batch (f32,
              full width or ``narrow``'s, at ``agree``'s depth; the
              CPU half in the child of phase 7), every leaf within
@@ -303,7 +309,7 @@ KERNEL_META = {
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk/ssd_chunk.py:59"),
     # the LLM path's bf16 calls take the tensor-core kernel; f32 and head
-    # dims 16, 32 take csrc/local_attn.cu
+    # dims 16, 32 take the split-tf32 route (ROUTE_META)
     "local_attn": ("src/repro_torch/kernels/csrc/local_attn_tc.cu",
                    "src/repro/kernels/local_attn/local_attn.py:90"),
     # the training path's gradients of the two LLM kernels (the Pallas
@@ -323,7 +329,9 @@ ROUTE_META = {
     # aggregate_flat: the stacked fold (0 launches on the paths)
     "fedavg_agg_stacked": ("fedavg_agg", "stacked_",
                            "src/repro_torch/kernels/csrc/fedavg_agg.cu"),
-    # f32 and bf16 at D 16, 32: launch.train's path
+    # f32 and bf16 at D 16, 32: launch.train's and phase 12's path
+    "local_attn_tf32": ("local_attn", "f32_",
+                        "src/repro_torch/kernels/csrc/local_attn_tf32.cu"),
     "local_attn_bwd_tf32": (
         "local_attn_bwd", "f32_",
         "src/repro_torch/kernels/csrc/local_attn_bwd_tf32.cu"),
@@ -338,7 +346,7 @@ KERNEL_SYMBOLS = {
     "dp_clip_noise": ("dp_clip_noise_cluster_kernel",
                       "dp_clip_noise_wide_kernel"),
     "ssd_chunk": ("ssd_chunk_tf32_kernel",),
-    "local_attn": ("local_attn_tc_kernel", "local_attn_kernel"),
+    "local_attn": ("local_attn_tc_kernel", "local_attn_tf32_kernel"),
     "ssd_chunk_bwd": ("ssd_chunk_bwd_kernel", "ssd_chunk_bwd_fold_kernel"),
     "local_attn_bwd": ("local_attn_bwd_tc_dq_kernel",
                        "local_attn_bwd_tc_dkdv_kernel",
@@ -447,9 +455,10 @@ KERNEL_RTOL = 2e-5      # f32 kernel vs plain at path shapes, x max(1, |plain|)
 SSD_F64_FACTOR = 2.0
 # ssd_chunk past the shapes PR 15's kernel took: b, c, l, h, p, g, n
 SSD_SHAPES = ((2, 4, 16, 8, 80, 2, 160), (1, 2, 256, 8, 80, 2, 160))
-# local_attn's tensor-core route (bf16) is held the same way: its output at
-# most ATTN_F64_FACTOR times as far from the f64 answer as the plain
-# version's bf16 output
+# local_attn's forward routes are held the same way: the output at most
+# ATTN_F64_FACTOR times as far from the f64 answer as the plain version's
+# output in the same dtype (bf16 on the tensor-core route, f32 and bf16 at
+# D 16/32 on split tf32)
 ATTN_F64_FACTOR = 2.0
 # the backward kernels against their plain versions (the explicit VJPs):
 # f32 within BWD_RTOL x max(1, max|plain|) (cuBLAS sums in another order;
@@ -1296,6 +1305,14 @@ def check_ssd(dev, gen):
 
 
 def check_local_attn(dev, gen):
+    """local_attn's forward kernels at the path's shapes: gemma-2b (B 2, H
+    8, KV 1, S 2048, D 256) in bf16 (the tensor-core route) and f32 (split
+    tf32), RecurrentGemma's window 2048 at S 4096 in f32, the padded head
+    dims 80 (f32, bf16) and 192 (bf16) and launch.train's shape in f32,
+    each on its route's counter, within its tolerance of the plain version
+    and at most ATTN_F64_FACTOR times as far from the f64 answer as it;
+    timed at gemma-2b's shape on both routes (the main keys bf16, the
+    ``f32_`` keys the split-tf32 route) and at launch.train's in f32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn import ops
@@ -1305,95 +1322,68 @@ def check_local_attn(dev, gen):
         return tuple(torch.randn(b, m, s, d, generator=gen, device=dev)
                      .to(dtype) for m in (h, kv, kv))
 
+    def hold(tag, q, k, v, kw):
+        """One call on its route, against the plain version and f64;
+        returns its max abs err."""
+        tc = ops.route(q.dtype, q.shape[-1]) == "tc"
+        before = (ops.launches_tc, ops.launches_tf32)
+        got = ops.local_flash_attention(q, k, v, **kw)
+        require((ops.launches_tc - before[0], ops.launches_tf32 - before[1])
+                == ((1, 0) if tc else (0, 1)), f"{tag}: took the wrong route")
+        want = local_attention_ref(q, k, v, **kw)
+        e, lim = rel_err(got, want)
+        if q.dtype == torch.bfloat16:
+            lim = 2e-2
+        require(got.shape == q.shape and e <= lim,
+                f"{tag}: max abs err {e} > {lim}")
+        exact = local_attention_ref(q.double(), k.double(), v.double(),
+                                    **kw)
+        dk, dp = f64_distance(got, exact), f64_distance(want, exact)
+        print(f"[kernels] {tag} ({ops.route(q.dtype, q.shape[-1])} route): "
+              f"max abs err {e:.3e} (limit {lim:.3e}); distance to f64 (x "
+              f"max|f64|) kernel {dk:.3e}, plain {dp:.3e} (limit "
+              f"x{ATTN_F64_FACTOR})")
+        require(dk <= ATTN_F64_FACTOR * dp, f"{tag}: the kernel is {dk} "
+                f"from f64, its plain version {dp}")
+        del exact
+        torch.cuda.empty_cache()
+        return e
+
     d = 256
     scale = d ** -0.5
     b, s = LLM["gemma-2b"].score
-    err = 0.0
-    # gemma-2b (H 8, KV 1) in bf16 and f32; RecurrentGemma's local window
-    for h, seq, window, dtype in ((8, s, 0, torch.bfloat16),
-                                  (8, s, 0, torch.float32),
-                                  (16, 4096, 2048, torch.float32)):
-        q, k, v = qkv(1 if window else b, h, 1, seq, d, dtype)
-        tc_before = ops.launches_tc
-        got = ops.local_flash_attention(q, k, v, causal=True, window=window,
-                                        scale=scale)
-        tc = ops.launches_tc - tc_before
-        require(tc == (dtype == torch.bfloat16), f"local_attn {dtype}: "
-                f"{tc} tensor-core launches")
-        want = local_attention_ref(q, k, v, causal=True, window=window,
-                                   scale=scale)
-        e, lim = rel_err(got, want)
-        if dtype == torch.bfloat16:
-            lim = 2e-2
-        require(e <= lim, f"local_attn H={h} S={seq} window={window} "
-                          f"{dtype}: max abs err {e} > {lim}")
-        print(f"[kernels] local_attn H={h} S={seq} window={window} {dtype} "
-              f"({ops.route(dtype, d)} route): max abs err {e:.3e} (limit "
-              f"{lim:.3e})")
-        err = max(err, e)
-        if dtype == torch.bfloat16:
-            # the tensor-core route against the same function in f64
-            exact = local_attention_ref(q.double(), k.double(), v.double(),
-                                        causal=True, window=window,
-                                        scale=scale)
-            dk, dp = f64_distance(got, exact), f64_distance(want, exact)
-            print(f"[kernels] local_attn bf16 H={h} S={seq}: distance to "
-                  f"f64 (x max|f64|) kernel {dk:.3e}, plain bf16 {dp:.3e} "
-                  f"(limit x{ATTN_F64_FACTOR})")
-            require(dk <= ATTN_F64_FACTOR * dp, f"local_attn bf16: the "
-                    f"kernel is {dk} from f64, its plain version {dp}")
-            del exact
+    err = err_f32 = 0.0
+    # gemma-2b (H 8, KV 1) in bf16 and f32; RecurrentGemma's local window;
     # head dims between the instantiations (hubert-xlarge's 80, an encoder;
-    # MLA's qk 192), zero-padded to the next one at the caller's scale
-    for dp, dtype, causal in ((80, torch.float32, False),
-                              (80, torch.bfloat16, False),
-                              (192, torch.bfloat16, True)):
-        q, k, v = qkv(1, 16, 16, 1024, dp, dtype)
-        kw = dict(causal=causal, window=0, scale=dp ** -0.5)
-        tc_before = ops.launches_tc
-        got = ops.local_flash_attention(q, k, v, **kw)
-        tc = ops.launches_tc - tc_before
-        require(tc == (dtype == torch.bfloat16), f"local_attn D={dp} {dtype}: "
-                f"{tc} tensor-core launches")
-        want = local_attention_ref(q, k, v, **kw)
-        e, lim = rel_err(got, want)
-        if dtype == torch.bfloat16:
-            lim = 2e-2
-        require(got.shape == q.shape and e <= lim, f"local_attn D={dp} "
-                f"{dtype}: max abs err {e} > {lim}")
-        line = (f"[kernels] local_attn D={dp} (padded to "
-                f"{ops.padded_head_dim(dp)}) {dtype} ({ops.route(dtype, dp)} "
-                f"route), H 16, S 1024, causal {causal}: max abs err {e:.3e} "
-                f"(limit {lim:.3e})")
-        if dtype == torch.bfloat16:
-            exact = local_attention_ref(q.double(), k.double(), v.double(),
-                                        **kw)
-            dk, dpl = f64_distance(got, exact), f64_distance(want, exact)
-            line += (f"; distance to f64 kernel {dk:.3e}, plain bf16 "
-                     f"{dpl:.3e} (limit x{ATTN_F64_FACTOR})")
-            require(dk <= ATTN_F64_FACTOR * dpl, f"local_attn D={dp} bf16: "
-                    f"the kernel is {dk} from f64, its plain version {dpl}")
-        print(line)
-        err = max(err, e)
-    # launch.train's shape: the f32 route at D 64 with GQA 4:1, timed
+    # MLA's qk 192), zero-padded to the next one at the caller's scale;
+    # launch.train's shape, the f32 route at D 64 with GQA 4:1
     lb, lh, lkv, ls, ld = LAUNCH_ATTN
+    for h, kv, seq, dh, window, causal, dtype, nb in (
+            (8, 1, s, d, 0, True, torch.bfloat16, b),
+            (8, 1, s, d, 0, True, torch.float32, b),
+            (16, 1, 4096, d, 2048, True, torch.float32, 1),
+            (16, 16, 1024, 80, 0, False, torch.float32, 1),
+            (16, 16, 1024, 80, 0, False, torch.bfloat16, 1),
+            (16, 16, 1024, 192, 0, True, torch.bfloat16, 1),
+            (lh, lkv, ls, ld, 0, True, torch.float32, lb)):
+        q, k, v = qkv(nb, h, kv, seq, dh, dtype)
+        padded = (f" (padded to {ops.padded_head_dim(dh)})"
+                  if ops.padded_head_dim(dh) != dh else "")
+        e = hold(f"local_attn B={nb} H={h} KV={kv} S={seq} D={dh}{padded} "
+                 f"window={window} causal {causal} {dtype}", q, k, v,
+                 dict(causal=causal, window=window, scale=dh ** -0.5))
+        err = max(err, e)
+        if dtype == torch.float32:
+            err_f32 = max(err_f32, e)
+        del q, k, v
     lq, lk, lv = qkv(lb, lh, lkv, ls, ld, torch.float32)
     lkw = dict(causal=True, window=0, scale=ld ** -0.5)
-    tc_before = ops.launches_tc
-    got = ops.local_flash_attention(lq, lk, lv, **lkw)
-    require(ops.launches_tc == tc_before, "local_attn at launch.train's "
-            "shape took the tensor-core route")
-    want = local_attention_ref(lq, lk, lv, **lkw)
-    e, lim = rel_err(got, want)
-    print(f"[kernels] local_attn launch.train shape B={lb} H={lh} KV={lkv} "
-          f"S={ls} D={ld} causal float32 ({ops.route(torch.float32, ld)} "
-          f"route): max abs err {e:.3e} (limit {lim:.3e})")
-    require(got.shape == lq.shape and e <= lim, f"local_attn at launch."
-            f"train's shape: max abs err {e} > {lim}")
-    err = max(err, e)
     lpairs = lb * lh * ls * (ls + 1) // 2
-    lbms, lby = bound(4 * (2 * lq.numel() + lk.numel() + lv.numel()),
-                      lpairs * 4 * ld)
+    lbytes = 4 * (2 * lq.numel() + lk.numel() + lv.numel())
+    lflops = lpairs * 4 * ld
+    lcore = bound(lbytes, lflops)
+    lbms, lby = min(lcore, bound(lbytes, lflops * ops.TF32_PRODUCTS,
+                                 TF32_TC_FLOP_PER_S))
 
     def lkernel():
         return ops.local_flash_attention(lq, lk, lv, **lkw)
@@ -1406,7 +1396,8 @@ def check_local_attn(dev, gen):
                   lambda: F.scaled_dot_product_attention(
                       lq, lk, lv, is_causal=True, scale=lkw["scale"],
                       enable_gqa=True), iters=100, warmup=10),
-              "launch_f32_bound_ms": lbms, "launch_f32_bound_by": lby}
+              "launch_f32_bound_ms": lbms, "launch_f32_bound_by": lby,
+              "launch_f32_cuda_core_bound_ms": lcore[0]}
     q, k, v = qkv(b, 8, 1, s, d, torch.bfloat16)
     # the same inputs as the model hands them over: (b, s, heads, D) views
     views = [t.transpose(1, 2).contiguous().transpose(1, 2)
@@ -1429,24 +1420,48 @@ def check_local_attn(dev, gen):
     flops = pairs * 4 * d
     bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
     q32, k32, v32 = (t.float() for t in (q, k, v))
+    views32 = [t.float() for t in views]
+    require(torch.equal(ops.local_flash_attention(*views32, causal=True,
+                                                  scale=scale),
+                        ops.local_flash_attention(q32, k32, v32, causal=True,
+                                                  scale=scale)),
+            "local_attn f32: strided views give another answer")
+    lib32_err = (library(q32, k32, v32)() - ops.local_flash_attention(
+        q32, k32, v32, causal=True, scale=scale)).abs().max().item()
+    require(lib32_err <= 2e-2, f"the f32 SDPA yardstick computes another "
+                               f"function ({lib32_err})")
+    # the split-tf32 route's products run on the tf32 tensor cores, three
+    # partial products each; the f32 CUDA cores' bound is kept beside it
+    core32 = bound(2 * nbytes, flops)
+    bms32, by32 = min(core32, bound(2 * nbytes, flops * ops.TF32_PRODUCTS,
+                                    TF32_TC_FLOP_PER_S))
 
     def kernel(*args):
         return lambda: ops.local_flash_attention(*args, causal=True,
                                                  scale=scale)
     return {"max_abs_err": err, "shape": f"B={b}, H=8, KV=1, S={s}, D={d}, "
-                                         "causal, bf16",
+                                         "causal, bf16 (f32_ keys: f32)",
             "ms": cuda_ms(kernel(q, k, v), iters=20, warmup=3),
             "device_ms": device_ms("local_attn", kernel(q, k, v), iters=20),
             "views_ms": cuda_ms(kernel(*views), iters=20, warmup=3),
-            "f32_ms": cuda_ms(kernel(q32, k32, v32), iters=10, warmup=2),
             "plain_ms": cuda_ms(lambda: local_attention_ref(
                 q, k, v, causal=True, window=0, scale=scale), iters=10,
                 warmup=2),
             "library_ms": cuda_ms(library(q, k, v), iters=20, warmup=3),
+            "bound_ms": bms, "bound_by": by,
+            "f32_max_abs_err": err_f32,
+            "f32_ms": cuda_ms(kernel(q32, k32, v32), iters=20, warmup=3),
+            "f32_device_ms": device_ms("local_attn", kernel(q32, k32, v32),
+                                       iters=20),
+            "f32_views_ms": cuda_ms(kernel(*views32), iters=20, warmup=3),
+            "f32_plain_ms": cuda_ms(lambda: local_attention_ref(
+                q32, k32, v32, causal=True, window=0, scale=scale),
+                iters=10, warmup=2),
             "f32_library_ms": cuda_ms(library(q32, k32, v32), iters=10,
                                       warmup=2),
-            "bound_ms": bms, "bound_by": by,
-            "f32_bound_ms": bound(2 * nbytes, flops)[0], **launch,
+            "f32_bound_ms": bms32, "f32_bound_by": by32,
+            "f32_cuda_core_bound_ms": core32[0],
+            "f32_products": ops.TF32_PRODUCTS, **launch,
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
 
 
@@ -4128,7 +4143,13 @@ def decode_by_replay(dev, arch):
         0, cfg.vocab_size, (2, T)), device=dev)
     t0 = time.perf_counter()
     with torch.no_grad():
+        reset_launch_counts()
         full, _ = model.forward(params, tokens=toks)
+        fwd = path_counts()
+        require(fwd["local_attn_tf32"] == fwd["local_attn"] and (
+            fwd["local_attn"] > 0) == (row.kernel == "local_attn"),
+            f"{arch}: the f32 forward launched {fwd}, not every local_attn "
+            "on the split-tf32 route")
         caches = model.init_caches(2, T, torch.float32, dev)
         reset_launch_counts()
         err = torch.zeros((), device=dev)
@@ -4294,10 +4315,14 @@ def check_llm_grads(dev, arch, model, cfg, params, batch, cpu):
     require(bwd == kernel_blocks(cfg), f"{arch}: {bwd} {kernel} backward "
                                        f"launches, expected "
                                        f"{kernel_blocks(cfg)}")
-    if kernel == "local_attn":      # f32: every backward on split tf32
-        tf32 = path_counts()["local_attn_bwd_tf32"]
-        require(tf32 == bwd, f"{arch}: {tf32} of {bwd} local_attn backward "
-                             "launches on the split-tf32 route")
+    if kernel == "local_attn":      # f32: every launch on split tf32
+        counts = path_counts()
+        fwd = counts["local_attn"] - bwd
+        require((counts["local_attn_tf32"], counts["local_attn_bwd_tf32"])
+                == (fwd, bwd), f"{arch}: {counts['local_attn_tf32']} of "
+                f"{fwd} local_attn forwards and "
+                f"{counts['local_attn_bwd_tf32']} of {bwd} backwards on the "
+                "split-tf32 route")
     require(len(grads) == len(cpu["grads"]), f"{arch}: {len(grads)} leaves "
             f"on the card, {len(cpu['grads'])} on the CPU")
     worst = 0.0
@@ -4546,8 +4571,9 @@ def phase_example():
 def path_counts() -> dict:
     """Every wrapper's ``launches``, the backward kernels' own
     (``launches_bwd``, as ``<kernel>_bwd``), local_attn's routes
-    (``local_attn_tc``, ``local_attn_bwd_tc``, ``local_attn_bwd_tf32``) and
-    the stacked fold's (``fedavg_agg_stacked``)."""
+    (``local_attn_tc``, ``local_attn_tf32``, ``local_attn_bwd_tc``,
+    ``local_attn_bwd_tf32``) and the stacked fold's
+    (``fedavg_agg_stacked``)."""
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.fedavg_agg import ops as agg_ops
     from repro_torch.kernels.local_attn import ops as attn_ops
@@ -4558,6 +4584,7 @@ def path_counts() -> dict:
             "local_attn_bwd_tc": attn_ops.launches_bwd_tc,
             "local_attn_bwd_tf32": attn_ops.launches_bwd_tf32,
             "local_attn_tc": attn_ops.launches_tc,
+            "local_attn_tf32": attn_ops.launches_tf32,
             "fedavg_agg_stacked": agg_ops.launches_stacked}
 
 
@@ -4939,7 +4966,8 @@ def launchers(dev) -> dict:
     want = {name: 0 for name in path_counts()}
     want["local_attn"] = 2 * steps * cfg.n_layers
     want["local_attn_bwd"] = steps * cfg.n_layers
-    want["local_attn_bwd_tf32"] = steps * cfg.n_layers   # f32: split tf32
+    # f32: both directions on split tf32
+    want["local_attn_tf32"] = want["local_attn_bwd_tf32"] = steps * cfg.n_layers
     torch.cuda.synchronize()
     reset_launch_counts()
     _, losses = train.main([*LAUNCH_TRAIN, "--device", dev.type])
@@ -5065,14 +5093,16 @@ def main() -> int:
                  "bound_by", "library_ms")
     route_keys = {"lstm_cell": ("lstm_seq_fwd", "lstm_seq_bwd"),
                   "fedavg_agg": ("fedavg_agg_leaves",)}
-    route_extra = {"local_attn_bwd_tf32": ("cuda_core_bound_ms",
+    route_extra = {"local_attn_tf32": ("cuda_core_bound_ms", "products"),
+                   "local_attn_bwd_tf32": ("cuda_core_bound_ms",
                                            "products")}
     count_keys = {"ssd_chunk": ("ssd_chunk_bwd",),
-                  "local_attn": ("local_attn_tc", "local_attn_bwd"),
+                  "local_attn": ("local_attn_tc", "local_attn_tf32",
+                                 "local_attn_bwd"),
                   "local_attn_bwd": ("local_attn_bwd_tc",
                                      "local_attn_bwd_tf32")}
     by_path = {name: {p: c.get(name, 0) for p, c in counts.items()}
-               for name in (*KERNEL_META, "local_attn_tc",
+               for name in (*KERNEL_META, "local_attn_tc", "local_attn_tf32",
                             "local_attn_bwd_tc", "local_attn_bwd_tf32")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,

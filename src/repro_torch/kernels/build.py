@@ -46,8 +46,8 @@ SIGNATURES = {
     "dp_clip_noise_launch": [_P, _P, _F, _F, _L, _P, _P, _P],
     "ssd_chunk_launch": [*[_P] * 4, *[_I] * 8, _P, _P, _P],
     "ssd_chunk_bwd_launch": [*[_P] * 6, *[_I] * 8, *[_P] * 5, _P],
-    "local_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                          _I, _I, _P, _P],
+    "local_attn_tf32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               *[_L] * 12, _F, _I, _I, _I, _P, _P],
     "local_attn_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              *[_L] * 12, _F, _I, _I, _P, _P],
     "local_attn_bwd_tf32_launch": [*[_P] * 11, *[_I] * 6, _F, *[_I] * 3,
@@ -158,7 +158,7 @@ def launch_sized(name: str, *args) -> int:
     """Call the library's launch function ``name`` under ``_sized_lock``:
     for the launchers that set their kernel's dynamic shared-memory limit
     to this call's size and then launch (the LSTM sequence scans,
-    ``local_attn.cu`` and both backward routes, ``ssd_chunk`` and its
+    ``local_attn_tf32.cu`` and both backward routes, ``ssd_chunk`` and its
     backward).  The limit belongs to the kernel, not to the thread, so a
     thread launching the same kernel at a smaller size could lower it
     between another thread's set and launch, and that launch would fail

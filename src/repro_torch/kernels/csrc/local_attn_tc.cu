@@ -7,8 +7,9 @@
 //   (causal: k_pos <= q_pos) and (window: k_pos > q_pos - window);
 //   out = softmax(score) @ v / max(l, 1e-30), by an online softmax over
 //   key tiles.
-// f32 calls, and bf16 at D 16 or 32, take the CUDA-core kernel in
-// local_attn.cu; the wrapper (kernels/local_attn/ops.py, route()) chooses.
+// f32 calls, and bf16 at D 16 or 32, take the split-tf32 kernel in
+// local_attn_tf32.cu; the wrapper (kernels/local_attn/ops.py, route())
+// chooses.
 //
 // Replaces the Pallas kernel flash_tiled -> _flash_kernel,
 // src/repro/kernels/local_attn/local_attn.py:34-123.

@@ -8,11 +8,12 @@ of two kernels, CPU tensors run ``ref.local_attention_ref``.
   (last dimension contiguous), and TMA fills rows past S or T with zeros,
   so nothing is padded or copied; the output takes q's layout.
 - ``"tf32"`` (every f32 call, and bf16 at D 16 or 32): the forward runs
-  ``csrc/local_attn.cu`` in f32 on the CUDA cores.  As the reference's
-  ``local_flash_attention``, the wrapper pads S and T to its tiles and
-  passes the unpadded T as ``t_real``; the kernel masks the padded keys
-  and the wrapper drops the padded rows.  The route is named for its
-  backward, split tf32 on the tensor cores.
+  ``csrc/local_attn_tf32.cu`` on the tensor cores in split tf32 (mma.sync,
+  ``TF32_PRODUCTS`` partial products a product, as the backward), reading
+  q, k, v and writing the output by their strides as the tensor-core
+  route does; cp.async fills rows past S or T with zeros, so nothing is
+  padded, and nothing is copied unless a stride is not a multiple of 16
+  bytes.
 
 A head dim between the instantiations (hubert-xlarge's 80, MLA's 192) is
 zero-padded on the last dim of q, k and v to the next one
@@ -24,7 +25,7 @@ The call is a ``torch.autograd.Function`` (``LocalAttnFn``) on every
 route.  When a gradient is needed, the forward kernel also writes each
 row's log-sum-exp (its ``lse`` output; null otherwise, so scoring runs
 the kernel as before), and the gradient runs ``local_attention_bwd`` on
-the forward's route (``route`` decides both):
+the forward's route (``route`` decides both directions):
 - ``"tc"``: ``csrc/local_attn_bwd_tc.cu`` on the tensor cores (one C call:
   the dq kernel, which first sums each row's delta = sum_t P dP from S and
   dP, the dv and the dk pass, a query head a CTA, and the fold of a kv
@@ -45,8 +46,9 @@ the kv heads both divide by the mesh extent, heads stay sharded; sequence
 and head_dim are gathered first.  The backward runs on the shards too.
 
 ``launches`` counts every launch, forward and backward; ``launches_tc``
-the forward's tensor-core route; ``launches_bwd`` the backward's, and
-``launches_bwd_tc`` and ``launches_bwd_tf32`` its two routes'.
+and ``launches_tf32`` the forward's two routes; ``launches_bwd`` the
+backward's, and ``launches_bwd_tc`` and ``launches_bwd_tf32`` its two
+routes'.
 """
 
 from __future__ import annotations
@@ -60,18 +62,17 @@ from repro_torch.kernels.local_attn.ref import (
     local_attention_ref,
 )
 
-BLK_Q = 32                      # LA_BQ in csrc/local_attn.cu
-BLK_K = 32                      # LA_BK
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 TC_HEAD_DIMS = (64, 128, 256)        # local_attn_tc.cu's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
+launches_tf32 = 0
 launches_bwd = 0
 launches_bwd_tc = 0
 launches_bwd_tf32 = 0
-# the split-tf32 backward's partial products a product
-# (csrc/local_attn_bwd_tf32.cu, LT_PARTS 2: three)
+# the split-tf32 route's partial products a product, both directions
+# (csrc/local_attn_tf32_common.cuh, LT_PARTS 2: three)
 TF32_PRODUCTS = 3
 
 
@@ -95,9 +96,8 @@ def pad_head_dim(q, k, v):
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernels a CUDA call takes: ``"tc"`` (bf16 on the tensor cores,
-    both ways) or ``"tf32"`` (f32, and bf16 at D 16 or 32: the CUDA-core
-    forward, the split-tf32 backward)."""
+    """The kernels a CUDA call takes, both ways: ``"tc"`` (bf16 on wgmma)
+    or ``"tf32"`` (f32, and bf16 at D 16 or 32: split tf32 on mma.sync)."""
     if dtype == torch.bfloat16 and padded_head_dim(head_dim) in TC_HEAD_DIMS:
         return "tc"
     return "tf32"
@@ -130,19 +130,30 @@ def _tma_inputs(*tensors):
     return ins, strides
 
 
-def _launch_tc(q, k, v, causal, window, scale, lse):
+def _launch(q, k, v, causal, window, scale, lse):
+    """One forward launch on ``route``'s kernel: q, k, v and the output by
+    their strides (the output in q's layout when q is dense)."""
     B, H, S, D = q.shape
     KV, T = k.shape[1], k.shape[2]
+    tc = route(q.dtype, D) == "tc"
     (q, k, v), strides = _tma_inputs(q, k, v)
-    out = torch.empty_like(q)           # q's layout when q is dense
+    out = torch.empty_like(q)
     strides.extend(tma_strides(out))
-    status = build.library().local_attn_tc_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
-        S, T, D, *strides, float(scale), int(bool(causal)), int(window),
-        None if lse is None else lse.data_ptr(),
-        build.stream_handle(q.device))
+    lse_ptr = None if lse is None else lse.data_ptr()
+    stream = build.stream_handle(q.device)
+    if tc:
+        status = build.library().local_attn_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KV, S, T, D, *strides, float(scale), int(bool(causal)),
+            int(window), lse_ptr, stream)
+    else:
+        status = build.launch_sized(
+            "local_attn_tf32_launch", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, H, KV, S, T, D, *strides,
+            float(scale), int(bool(causal)), int(window), _DTYPES[q.dtype],
+            lse_ptr, stream)
     build.check(status, "local_attn")
-    build.count(__name__, "launches", "launches_tc")
+    build.count(__name__, "launches", "launches_tc" if tc else "launches_tf32")
     return out
 
 
@@ -167,32 +178,11 @@ def _check(q, k, v, window):
 
 def _forward_cuda(q, k, v, causal, window, scale, need_lse):
     """(out, lse or None) from the forward kernels; D instantiated."""
-    B, H, S, D = q.shape
-    KV, T = k.shape[1], k.shape[2]
+    B, H, S, _ = q.shape
     lse = None
-    if route(q.dtype, D) == "tc":
-        if need_lse:
-            lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-        return _launch_tc(q, k, v, causal, window, scale, lse), lse
-    pad_q, pad_k = (-S) % BLK_Q, (-T) % BLK_K
-    qp = F.pad(q, (0, 0, 0, pad_q)) if pad_q else q
-    kp = F.pad(k, (0, 0, 0, pad_k)) if pad_k else k
-    vp = F.pad(v, (0, 0, 0, pad_k)) if pad_k else v
-    qp, kp, vp = qp.contiguous(), kp.contiguous(), vp.contiguous()
-    out = torch.empty_like(qp)
     if need_lse:
-        lse = torch.empty((B, H, S + pad_q), dtype=torch.float32,
-                          device=q.device)
-    status = build.launch_sized(
-        "local_attn_launch",
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), B, H, KV,
-        S + pad_q, T + pad_k, T, D, float(scale), int(bool(causal)),
-        int(window), _DTYPES[q.dtype],
-        None if lse is None else lse.data_ptr(),
-        build.stream_handle(q.device))
-    build.check(status, "local_attn")
-    build.count(__name__, "launches")
-    return out[:, :, :S], None if lse is None else lse[:, :, :S]
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, scale, lse), lse
 
 
 def local_attention_bwd(q, k, v, lse, dout, *, causal: bool, window: int,

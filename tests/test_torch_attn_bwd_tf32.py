@@ -328,11 +328,13 @@ def test_shared_memory_layout_mirrors_the_kernel(D):
 
 def test_wrapper_constants_mirror_the_kernel_source():
     """The tiles above, ``ops.TF32_PRODUCTS`` and ``smem_bytes``' terms
-    are the kernel source's: ``LT_PARTS``, ``LT_BM``, ``LtShape``'s BN and
-    EW, ``LtPad``, ``lt_smem``, ``lt_stages`` and the two launches'
-    shared memory."""
-    src = (Path(ops.__file__).parents[1] / "csrc" /
-           "local_attn_bwd_tf32.cu").read_text()
+    are the kernel source's (the backward and the helpers it shares with
+    the forward): ``LT_PARTS``, ``LT_BM``, ``LtShape``'s BN and EW,
+    ``LtPad``, ``lt_smem``, ``lt_stages`` and the two launches' shared
+    memory."""
+    csrc = Path(ops.__file__).parents[1] / "csrc"
+    src = "\n".join((csrc / name).read_text() for name in (
+        "local_attn_tf32_common.cuh", "local_attn_bwd_tf32.cu"))
     parts = int(re.search(r"#define LT_PARTS (\d)", src).group(1))
     assert ops.TF32_PRODUCTS == {2: 3, 3: 6}[parts] == 3
     assert int(re.search(r"#define LT_BM (\d+)", src).group(1)) == BLOCK_M

@@ -21,7 +21,13 @@ at 2e-2.  bf16 at D 64, 128 and 256 takes the tensor-core route
 against the plain version, its output may sit at most twice as far from
 the same function evaluated in f64 (the plain version on f64 copies of
 the bf16 inputs) as the plain version's bf16 output does, and it reads
-transposed views in place.  The SSD at mamba2-370m's shapes is also
+transposed views in place.  f32, and bf16 at D 16 and 32, take the
+split-tf32 route (``local_attn_tf32.cu``; ``ops.launches_tf32``): within
+2e-5 x max(1, max|plain|) in f32 (2e-2 in bf16) at D 16-256, ragged S and
+T, windows with and without the causal mask, at most twice as far from
+the f64 answer as the plain version, its row log-sum-exp within 2e-5 x
+max(1, max|lse|) of the plain scores', the same bits twice, and strided
+views read in place.  The SSD at mamba2-370m's shapes is also
 held against the same function evaluated in f64: there dA_cum reaches ~200 in magnitude, where
 an f32 ulp is 1.5e-5, so the order of the in-chunk scan shows.  The
 kernel may sit at most twice as far from the f64 answer as its plain
@@ -611,6 +617,70 @@ def test_local_attn_kernel_takes_every_head_dim(D, cuda):
     torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("B,H,KV,S,T,D,causal,window,dtype", [
+    (2, 4, 2, 64, 64, 16, True, 0, torch.float32),
+    (1, 8, 2, 200, 200, 32, True, 0, torch.float32),     # S off the tiles
+    (2, 4, 1, 130, 130, 64, False, 0, torch.float32),    # bidirectional
+    (1, 4, 4, 100, 77, 128, False, 0, torch.float32),    # T != S, ragged
+    (1, 8, 1, 333, 333, 256, True, 48, torch.float32),   # a window
+    (1, 2, 1, 70, 150, 256, True, 0, torch.float32),     # S < T
+    (1, 4, 2, 150, 150, 128, False, 40, torch.float32),  # window, no mask
+    (2, 4, 2, 90, 90, 16, True, 20, torch.bfloat16),
+    (1, 4, 1, 150, 150, 32, False, 0, torch.bfloat16),
+])
+def test_local_attn_tf32_forward_matches_plain_and_f64(B, H, KV, S, T, D,
+                                                       causal, window, dtype,
+                                                       cuda):
+    """The split-tf32 forward (module docstring): one launch on its route,
+    the plain version's answer, as near f64, its lse, the same bits
+    twice."""
+    gen = torch.Generator(device=cuda).manual_seed(S + T + D)
+    q = randn(gen, B, H, S, D).to(dtype)
+    k, v = (randn(gen, B, KV, T, D).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, scale=D ** -0.5)
+    before = (attn_ops.launches, attn_ops.launches_tc,
+              attn_ops.launches_tf32)
+    out = local_flash_attention(q, k, v, **kw)
+    assert (attn_ops.launches, attn_ops.launches_tc,
+            attn_ops.launches_tf32) == (before[0] + 1, before[1],
+                                        before[2] + 1)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(out, local_flash_attention(q, k, v, **kw))
+    plain = local_attention_ref(q, k, v, **kw)
+    exact = local_attention_ref(q.double(), k.double(), v.double(), **kw)
+    full_close(out, plain, "local_attn tf32",
+               rtol=2e-5 if dtype == torch.float32 else 2e-2)
+    d_k, d_p = f64_distance(out, exact), f64_distance(plain, exact)
+    assert d_k <= ATTN_F64_FACTOR * d_p, (d_k, d_p)
+    _, lse = attn_ops._forward_cuda(q, k, v, causal, window, kw["scale"],
+                                    True)
+    s = torch.einsum("bhsd,bhtd->bhst", q.double(),
+                     k.double().repeat_interleave(H // KV, 1)) * kw["scale"]
+    ok = torch.ones(S, T, dtype=torch.bool, device=cuda)
+    pos_q = torch.arange(S, device=cuda)[:, None]
+    pos_k = torch.arange(T, device=cuda)[None, :]
+    if causal:
+        ok &= pos_k <= pos_q
+    if window:
+        ok &= pos_k > pos_q - window
+    want = torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)
+    full_close(lse, want, "local_attn tf32 lse")
+
+
+def test_local_attn_tf32_forward_reads_strided_views_in_place(cuda):
+    """f32 q, k, v as the model hands them over, (b, s, heads, D)
+    transposed: the output takes q's layout and equals the contiguous
+    copies' output bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (randn(gen, 2, 200, n, 64) for n in (4, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    out = local_flash_attention(*views, causal=True, scale=0.125)
+    assert out.stride() == views[0].stride()
+    want = local_flash_attention(*(t.contiguous() for t in views),
+                                 causal=True, scale=0.125)
+    assert torch.equal(out, want)
+
+
 def attn_f64_check(q, k, v, out, **kw):
     """The tensor-core route's distance to f64 against the plain version's
     bf16 output's (module docstring)."""
@@ -673,11 +743,15 @@ def test_local_attn_tc_route_reads_strided_views_in_place(S, cuda):
 
 
 def test_local_attn_f32_stays_on_the_cuda_cores(cuda):
+    """f32 never takes the bf16 tensor-core route: its forward runs split
+    tf32 (``launches_tf32``)."""
     q = torch.zeros(1, 2, 64, 128, device=cuda)
-    before, before_tc = attn_ops.launches, attn_ops.launches_tc
+    before = (attn_ops.launches, attn_ops.launches_tc,
+              attn_ops.launches_tf32)
     local_flash_attention(q, q, q, scale=0.1)
-    assert (attn_ops.launches, attn_ops.launches_tc) == (before + 1,
-                                                         before_tc)
+    assert (attn_ops.launches, attn_ops.launches_tc,
+            attn_ops.launches_tf32) == (before[0] + 1, before[1],
+                                        before[2] + 1)
 
 
 def test_local_attn_kernel_refuses_other_head_dims(cuda):

@@ -6,7 +6,11 @@ subprocess on a fake 256-rank world (gemma-2b ``decode_32k`` at 16x16, a
 few seconds): status ok, its ``analytic`` record equal to the
 reference's ``analytic_costs`` for the same arguments, its collectives
 recorded from DTensor (the plan's in the roofline, ``mesh_ops``' gathers
-apart).  The reference's two subprocess tests (mamba2-370m
+apart).  Training steps of configs whose query or kv heads do not divide
+the 16-wide "model" axis (gemma-2b, glm4-9b) or whose gradients arrive
+in a permuted layout (hubert-xlarge) issue no ``mesh_ops`` gather: the
+reference's rules keep such heads replicated (ROADMAP.md §3).  The
+reference's two subprocess tests (mamba2-370m
 ``train_4k --multi-pod``) and the cluster-parallel mode are ``heavy``, as
 the reference's are.
 """
@@ -113,6 +117,21 @@ def test_dryrun_subprocess_moe_routes_on_the_mesh(arch, shape, timeout):
         else None, mla_absorb=True)
     assert rec["analytic"] == want
     assert rec["roofline"]["compute_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "glm4-9b", "hubert-xlarge"])
+def test_dryrun_subprocess_train_gathers_only_what_the_plan_gathers(arch):
+    rec = run_dryrun("--arch", arch, "--shape", "train_4k", timeout=300)
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16"
+    fb = rec["collectives"]["fallback"]
+    assert fb["total"] == 0 and sum(fb["counts"].values()) == 0, fb
+    assert rec["collectives"]["total"] > 0
+    jcfg = jax_get_config(arch).replace(remat=rec["remat"])
+    want = jax_analytic_costs(jcfg, JAX_SHAPES["train_4k"], 256,
+                              {"data": 16, "model": 16}, remat=rec["remat"],
+                              moment_bytes=4, window_override=None,
+                              mla_absorb=rec["mla_absorb"])
+    assert rec["analytic"] == want
 
 
 @pytest.mark.parametrize("n,experts", [(0, 4), (1, 4), (96, 16), (4096, 64)])

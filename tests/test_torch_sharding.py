@@ -11,8 +11,11 @@ checked on a fake 512-rank mesh with meta tensors (no storage): each local
 shard's shape is the global shape divided as the spec says.  Model runs on
 a (1, 1) gloo mesh equal the plain forward exactly; a spawned 2-process
 gloo world holds attention (GQA, heads sharded over "model"), the chunked
-SSD (heads and groups sharded) and the DTensor einsum against the
-unsharded results within 1e-6 (f32 sums split over two ranks).  Every test
+SSD (heads and groups sharded), the model's attention with query heads
+that do not divide "model" (replicated, as the reference's rules place
+them: no ``mesh_ops`` gather under a ``CollectiveCounter``) and the
+DTensor einsum against the unsharded results within 1e-6 (f32 sums split
+over two ranks).  Every test
 that starts a process group destroys it, also when it fails.
 """
 
@@ -368,6 +371,7 @@ def _two_rank_worker(rank, port, out_dir):
 
     from repro_torch.kernels.local_attn.ops import local_flash_attention
     from repro_torch.kernels.ssd_chunk.ops import ssd_chunked_fused
+    from repro_torch.launch.roofline import CollectiveCounter
     from repro_torch.models.attention import attention_forward, attention_schema
     from repro_torch.models.layers import einsum
     from repro_torch.sharding.logical import init_from_schema
@@ -451,6 +455,42 @@ def _two_rank_worker(rank, port, out_dir):
             errs[f"attention_{arch}_kv_heads_sharded"] = float(
                 dp["wk"].placements[1] == Shard(1))
 
+        # query heads that do not divide the model extent (3 over 2): the
+        # rules replicate them and their kv heads, as the reference's do;
+        # the activations shard batch (kv 1) or the contracted d (kv 3)
+        # over "model", so every projection goes through mesh_ops' placed
+        # bmm, and no collective of the run is a mesh_ops gather
+        for kv, xdim in ((1, 0), (3, 2)):
+            cfg = reduced_for_smoke(get_config("gemma-2b")).replace(
+                n_heads=3, n_kv_heads=kv)
+            rules = make_rules(mesh)
+            schema = attention_schema(cfg)
+            p = init_from_schema(schema, g, "cpu")
+            x = torch.randn(2, 12, cfg.d_model, generator=g)
+            dy = torch.randn(2, 12, cfg.d_model, generator=g)
+            kw = dict(positions=torch.arange(12), window=0, causal=True)
+            live = {k: t.clone().requires_grad_() for k, t in p.items()}
+            xs = x.clone().requires_grad_()
+            want, _ = attention_forward(cfg, live, xs, **kw)
+            want.backward(dy)
+            pls = shardings_from_schema(schema, mesh, rules)
+            dp = {k: put(t, pls[k]) for k, t in p.items()}
+            dx = put(x, [Replicate(), Shard(xdim)])
+            counter = CollectiveCounter()
+            with counter, on_mesh():
+                got, _ = attention_forward(cfg, dp, dx, rules=rules, **kw)
+                got.backward(distribute_tensor(dy, mesh, got.placements))
+            tag = f"attention_heads3_kv{kv}"
+            errs[tag] = max(
+                (a.full_tensor() - b).abs().max().item()
+                / max(1.0, b.abs().max().item())
+                for a, b in ((got, want), (dx.grad, xs.grad),
+                             *((dp[k].grad, live[k].grad) for k in p)))
+            errs[f"{tag}_heads_sharded"] = float(
+                dp["wq"].placements[1] == Shard(1))
+            errs[f"{tag}_fallback_collectives"] = float(
+                sum(counter.fallback_counts.values()))
+
         a = torch.randn(2, 3, 8, generator=g)
         w = torch.randn(8, 4, 6, generator=g)
         want = torch.einsum("bsd,dhk->bshk", a, w)
@@ -483,6 +523,9 @@ def test_sharded_kernels_equal_the_unsharded_on_two_ranks(tmp_path):
         assert errs["attn_kv1_heads_sharded"] == 0.0
         assert errs["attention_glm4-9b_kv_heads_sharded"] == 1.0
         assert errs["attention_gemma-2b_kv_heads_sharded"] == 0.0
+        for kv in (1, 3):
+            assert errs[f"attention_heads3_kv{kv}_heads_sharded"] == 0.0
+            assert errs[f"attention_heads3_kv{kv}_fallback_collectives"] == 0
         for name, err in errs.items():
             if not name.endswith("heads_sharded"):
                 assert err <= 1e-6, (rank, name, err)

@@ -2,8 +2,10 @@
 
     python3 tools/attn_bwd_variants.py [name ...]
 
-Each variant is the committed ``csrc/local_attn_bwd_tf32.cu`` with one
-design choice undone by a text substitution, built with the head fold
+Each variant is the committed ``csrc/local_attn_bwd_tf32.cu`` (with the
+helpers it shares with the forward, ``csrc/local_attn_tf32_common.cuh``)
+with one design choice undone by a text substitution, built with the head
+fold
 (``csrc/local_attn_bwd.cu``) into its own library under
 ``build/attn_bwd_variants/`` (the builds run together) and launched
 through the same C entry point as ``kernels/local_attn/ops.py``'s
@@ -62,22 +64,43 @@ VARIANTS = {
 }
 
 
-def start_build(name, subs):
+def build_variant(out, name, sources, subs, extra=()):
+    """Start ``nvcc`` on a variant: ``sources`` (``csrc`` file names, the
+    .cu first, then the headers it includes by quotes) copied to
+    ``out/name/`` with each substitution made where its text is, into
+    ``out/name.so`` with the ``csrc`` files ``extra``; returns the
+    process."""
     from repro_torch.kernels import build
 
-    src = (build.CSRC / "local_attn_bwd_tf32.cu").read_text()
+    texts = {src: (build.CSRC / src).read_text() for src in sources}
     for old, new in subs:
-        if old not in src:
-            raise SystemExit(f"{name}: {old!r} is not in the source")
-        src = src.replace(old, new)
-    out = ROOT / "build" / "attn_bwd_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{name}.cu").write_text(src)
+        hit = [src for src, text in texts.items() if old in text]
+        if not hit:
+            raise SystemExit(f"{name}: {old!r} is in none of {sources}")
+        for src in hit:
+            texts[src] = texts[src].replace(old, new)
+    here = out / name
+    here.mkdir(parents=True, exist_ok=True)
+    for src, text in texts.items():
+        (here / src).write_text(text)
     return subprocess.Popen(
         [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-         "-shared", "-o", str(out / f"{name}.so"), str(out / f"{name}.cu"),
-         str(build.CSRC / "local_attn_bwd.cu")],
+         "-shared", "-o", str(out / f"{name}.so"), str(here / sources[0]),
+         *(str(build.CSRC / src) for src in extra)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def start_build(name, subs):
+    return build_variant(ROOT / "build" / "attn_bwd_variants", name,
+                         ("local_attn_bwd_tf32.cu",
+                          "local_attn_tf32_common.cuh"), subs,
+                         extra=("local_attn_bwd.cu",))
+
+
+def registers(text):
+    """The registers of each kernel as ``nvcc -Xptxas -v`` reports them."""
+    return sorted({line.split("Used ")[1].split(",")[0]
+                   for line in text.splitlines() if "registers" in line})
 
 
 def load(name, proc):
@@ -86,8 +109,7 @@ def load(name, proc):
     text, _ = proc.communicate()
     if proc.returncode:
         raise SystemExit(f"{name}: nvcc failed\n{text}")
-    regs = sorted({line.split("Used ")[1].split(",")[0]
-                   for line in text.splitlines() if "registers" in line})
+    regs = registers(text)
     lib = ctypes.CDLL(str(ROOT / "build" / "attn_bwd_variants" /
                           f"{name}.so"))
     fn = lib.local_attn_bwd_tf32_launch
