@@ -243,6 +243,48 @@ Phases, each fatal on failure (non-zero exit, no final line):
              the f32 local_attn forward and backward kernels, 12 and 6
              launches) and ``launch.serve.main`` in process on the card.
              The process group is destroyed at the phase's end.
+16. quickstart — ``examples/quickstart_torch.py`` (counters set to 0 just
+             before each in-process run, read just after): (a) the user's
+             command, ``--topology tcp --metrics --trace-out
+             <tmp>/spans.json``, as a subprocess in the background (exit
+             0; the example and its two ``--device cuda`` servers listed
+             by nvidia-smi; assignments, ``async_stats``, both cluster
+             metas, ``transport=tcp respawns=0`` and the join printed; a
+             trace whose flow chains reach a server); (b) ``quickstart``
+             on single, sharded and process (the sim's in-process
+             emulation, as in the reference) at the example's size from
+             weights drawn on the CPU: the same assignments, stats on the
+             sim's keys, metas and join on the three and as (a) printed
+             (but tcp's stats, whose lazy mirror sync defers updates),
+             exactly one split-tf32 ``local_attn`` forward and one
+             backward a layer a step (96 steps a run), fold launches =
+             implied; each run against the CPU child's run of its
+             topology (everything but params equal; params within
+             QUICKSTART_RTOL x max(1, max|p|) or QUICKSTART_WITNESS times
+             the CPU run's move under one ulp of its initial weights), and
+             (a) against the CPU's tcp run; (c) gemma-2b at full width, 3
+             of 18 layers (QUICKSTART_FULL_DEPTH: memory) in bf16 on the
+             sharded store: 16 updates, (b)'s assignments, one tensor-core
+             ``local_attn`` forward and backward a layer a step, fold
+             launches = implied, the global model moved, the join's params
+             the Vienna cluster model's; wall time, peak memory and the
+             folds' share.
+17. chaos  — the reference's chaos scenario (``regional_outage(5_000, 16,
+             n_clusters=8, seed=11)``, a cluster migration at tick 6),
+             run after phase 10 on that phase's servers, counters set to 0
+             before each run: sharded (2 shards; fold launches = implied;
+             everything but timings equal to the CPU child's run, params
+             within 1e-5), tcp (the destination worker's session dropped at
+             tick 6, server 0 killed at tick 10, gone from nvidia-smi's
+             list, respawned on its port with ``--device cuda`` and listed
+             again), process with 2 spawned CUDA workers (the destination
+             worker killed at tick 6, gone from the list, its successor
+             listed) at the reference's width and at the forecaster's
+             (141,953; both stores built at once so the four cold starts
+             overlap): ``cluster_migrations`` >= 1, ``respawns`` >= 1
+             where something was killed, 0 lost updates and 0
+             effective-round regressions; wall time, cold starts and wire
+             bytes.
 
 Each phase's wall time is printed as a ``[time]`` line.  The script
 re-executes itself once with ``PYTHONHASHSEED=0``: the solar
@@ -2261,10 +2303,28 @@ class recording_folds:
     global merge the plan's metas, and each worker's ``greduce`` weights),
     from which ``implied_launches`` counts the N-way sums on the CPU.
     ``merge_width`` is the process store's ``max_coalesce``, which bounds
-    its merge and its workers' partial reductions."""
+    its merge and its workers' partial reductions.  ``timed`` adds each
+    fold's wall time, synchronised, to ``seconds``."""
 
-    def __init__(self, merge_width: int = 0):
+    def __init__(self, merge_width: int = 0, timed: bool = False):
         self.merge_width = merge_width
+        self.timed = timed
+        self.seconds = 0.0
+
+    def _clocked(self, fn):
+        if not self.timed:
+            return fn
+        import torch
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+        return run
 
     def __enter__(self):
         import repro_torch.core.server_proc as server_proc
@@ -2277,6 +2337,8 @@ class recording_folds:
                        server_proc.ShardWorker._greduce,
                        store.aggregate_models)
         flat, two, worker_flat, plan, greduce, pair = self._saved
+        flat, two, worker_flat, greduce, pair = map(
+            self._clocked, (flat, two, worker_flat, greduce, pair))
 
         def rec_pair(base_params, base_meta, updated_params, updated_meta,
                      delta, cfg):
@@ -3247,14 +3309,17 @@ def merged_hists(dump) -> dict:
 
 
 def cpu_child(out_dir):
-    """The CPU child's job (``CpuChild``): the CPU halves of three
+    """The CPU child's job (``CpuChild``): the CPU halves of five
     card-against-CPU checks, one after the other, in the order the main
     process needs them, each result written to ``out_dir`` whole (a
     temporary name, then a rename): phase 12's LLM gradients
     (``grads_<arch>.pt``: the loss and every leaf's gradient, the plain
-    VJPs), then phase 7's sharded sim at hidden 16 (``sharded.json``) and
-    phase 9's telemetry sim at hidden 16 (``telemetry.json``: its stats and
-    deterministic histograms), both checked at the end."""
+    VJPs), then phase 16's quickstart runs on the four topologies
+    (``quickstart.pt``) and phase 17's sharded chaos run
+    (``chaos.json``), phase 7's sharded sim at hidden 16
+    (``sharded.json``) and phase 9's telemetry sim at hidden 16
+    (``telemetry.json``: its stats and deterministic histograms), all
+    checked at the end."""
     import torch
 
     sys.path.insert(0, str(REPO / "src"))
@@ -3273,6 +3338,12 @@ def cpu_child(out_dir):
         result = {"loss": loss, "grads": grads,
                   "wall_s": time.perf_counter() - t0}
         publish(f"grads_{arch}.pt", lambda f: torch.save(result, f))
+    quick = {topology: {"info": json.dumps(run["info"]),
+                        "params": run["params"]}
+             for topology, run in quickstart_cpu().items()}
+    publish("quickstart.pt", lambda f: torch.save(quick, f))
+    chaos = json.dumps(chaos_cpu())
+    publish("chaos.json", lambda f: f.write_text(chaos))
     sharded = json.dumps(sharded_sim16("cpu"))
     publish("sharded.json", lambda f: f.write_text(sharded))
     t0 = time.perf_counter()
@@ -4714,17 +4785,12 @@ def federated_llm(dev) -> dict:
     loss falls, the update count is FED_LLM_UPDATES, the fold launches are
     the ones the recorded folds imply, and the global model left its
     init."""
-    import importlib.util
-
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.utils.tree import tree_leaves
 
-    spec = importlib.util.spec_from_file_location(
-        "federated_llm_torch", REPO / "examples" / "federated_llm_torch.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("federated_llm_torch")
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -5007,6 +5073,677 @@ def phase_distribution(dev) -> tuple[dict, dict]:
     return counts, launched
 
 
+# ----------------------------------------------------------------- phase 16
+# examples/quickstart_torch.py: the user's command (tcp, a subprocess),
+# the three other topologies at the example's size in this process (from
+# CPU-drawn weights, so the CPU child's runs start from the same ones),
+# and gemma-2b at full width and depth in bf16 on the sharded store
+QUICKSTART_TOPOLOGIES = ("single", "sharded", "process")
+QUICKSTART_RTOL = 1e-4      # params, card against CPU, x max(1, max|p|)
+# ... or this many times the CPU run's own move under one ulp of its
+# initial weights (about 9e-5: the run's 96 AdamW steps amplify
+# rounding, m / sqrt(v) flipping where gradients are near zero)
+QUICKSTART_WITNESS = 4.0
+QUICKSTART_FULL = "gemma-2b"
+# (c)'s depth: the run holds about 75 bytes a parameter at its peak (the
+# example's AdamW keeps f32 moments, old and new at the update, beside f32
+# clipped gradients and updates; the store's models, four clients' local
+# models, queued updates and the sim's in-flight snapshots stay alive):
+# alone on the 80 GB card 4 of 18 layers (965 M parameters) peak at 67.3
+# GiB and 6 run out of memory in the AdamW update
+# (tools/quickstart_memory.py); after (b), beside (a)'s processes, 4 ran
+# out too, so 3 (855 M parameters)
+QUICKSTART_FULL_DEPTH = 3
+QUICKSTART_UPDATES = 16
+# the sim's store tiers' own stats keys (sharded: SHARD_FIELDS and the
+# queue's; process: PROC_FIELDS too)
+QUICKSTART_TIER_FIELDS = ("coalesce_factor", "max_queue_depth",
+                          *SHARD_FIELDS, *PROC_FIELDS)
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_init():
+    """The reduced config's weights drawn from seed 0 on the CPU: the
+    card's runs and the CPU child's start from the same tensors."""
+    import torch
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.models.model import build_model
+
+    cfg = reduced_for_smoke(get_config(QUICKSTART_FULL))
+    return build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+
+
+def as_json(obj):
+    """``obj`` as it comes back from JSON (tuples as lists, keys as
+    strings): how the CPU child's results arrive."""
+    return json.loads(json.dumps(obj))
+
+
+def quickstart_summary(out) -> dict:
+    """What the card's run and the CPU's are held to: ``info`` (the
+    assignments, stats, each cluster's round and samples and the join's
+    keys, as JSON) and every model's leaves on the CPU."""
+    from repro_torch.utils.tree import tree_leaves
+
+    store = out["fed"].store
+    return {"info": as_json({
+                "assignments": out["assignments"], "stats": out["stats"],
+                "metas": {k: [m.round, m.samples_learned]
+                          for k, m in out["metas"].items()},
+                "join": out["join"][0]}),
+            "params": {f"{level}:{key}": [x.cpu() for x in tree_leaves(
+                store.params(level, key))] for level, key in
+                model_keys(store)}}
+
+
+def quickstart_cpu() -> dict:
+    """The CPU child's job: the example on the four topologies from
+    ``quickstart_init``'s weights (tcp on two CPU shard servers), and, as
+    the witness of its rounding sensitivity, single, sharded and process
+    again from those weights scaled by 1 + 2^-23 (``<topology>_ulp``:
+    their params only)."""
+    import io
+
+    from repro_torch.utils.tree import tree_map
+
+    example, init = load_example("quickstart_torch"), quickstart_init()
+    nudged = tree_map(lambda x: x * (1 + 2.0**-23), init)
+    out = {}
+    for topology, weights, tag in (
+            *((t, init, t) for t in (*QUICKSTART_TOPOLOGIES, "tcp")),
+            *((t, nudged, f"{t}_ulp") for t in QUICKSTART_TOPOLOGIES)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = example.quickstart(topology, init_params=weights,
+                                     device="cpu")
+        out[tag] = quickstart_summary(run)
+    return out
+
+
+def quickstart_counted(dev, topology, cfg=None, init=None,
+                       timed: bool = False):
+    """``quickstart(topology)`` on the card, its printed lines kept, the
+    counters set to 0 just before and read just after, its folds recorded
+    and its AdamW steps counted.  Returns (out, counts, steps, implied
+    launches, wall, fold seconds, the printed text)."""
+    import io
+
+    import torch
+    from repro_torch.kernels import reset_launch_counts
+
+    example = load_example("quickstart_torch")
+    steps = [0]
+    build_step = example.build_train_step
+
+    def counted(*a, **kw):
+        step = build_step(*a, **kw)
+
+        def run(*s):
+            steps[0] += 1
+            return step(*s)
+        return run
+
+    example.build_train_step = counted
+    text = io.StringIO()
+    recorder = recording_folds(16, timed=timed)
+    with recorder as folds:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            out = example.quickstart(topology, cfg=cfg, init_params=init,
+                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts()
+    return (out, counts, steps[0], implied_launches(folds), wall,
+            recorder.seconds if timed else None, text.getvalue())
+
+
+def require_attention_launches(counts, layers, steps, route, what):
+    """One ``local_attn`` forward and one backward launch a layer a step,
+    all on ``route`` ("tf32": the split-tf32 pair, "tc": the tensor-core
+    pair)."""
+    other = "tc" if route == "tf32" else "tf32"
+    want = layers * steps
+    require(counts[f"local_attn_{route}"] == want
+            and counts[f"local_attn_bwd_{route}"] == want
+            and counts["local_attn"] == 2 * want
+            and counts[f"local_attn_{other}"] == 0
+            and counts[f"local_attn_bwd_{other}"] == 0,
+            f"{what}: local_attn launches {counts['local_attn']} (forward "
+            f"{counts[f'local_attn_{route}']}, backward "
+            f"{counts[f'local_attn_bwd_{route}']} on {route}), expected "
+            f"{want} each ({layers} layers x {steps} steps)")
+
+
+def parsed_line(text: str, prefix: str):
+    """The Python literal after ``prefix`` on the first line holding it."""
+    import ast
+
+    for line in text.splitlines():
+        if prefix in line:
+            return ast.literal_eval(line.split(prefix, 1)[1].strip())
+    raise SmokeFailure(f"no line with {prefix!r} in: {text[-2000:]}")
+
+
+class QuickstartCommand:
+    """``examples/quickstart_torch.py --topology tcp --metrics --trace-out
+    <tmp>/spans.json`` as a user runs it, in the background: a thread reads
+    its lines and, when the servers announce, counts the card's compute
+    processes (the example's own and its two ``--device cuda``
+    servers)."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self._dir = tempfile.TemporaryDirectory()
+        self.trace = Path(self._dir.name) / "spans.json"
+        self._err = open(Path(self._dir.name) / "stderr", "w+")
+        self.before = compute_apps()
+        self.apps = self.t_end = None
+        self.lines = []
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(REPO / "src"), *filter(None, [env.get("PYTHONPATH")])])
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(REPO / "examples" / "quickstart_torch.py"),
+             "--topology", "tcp", "--metrics", "--trace-out",
+             str(self.trace)], stdout=subprocess.PIPE, stderr=self._err,
+            text=True, env=env, start_new_session=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith("loopback shard servers:"):
+                self.apps = compute_apps()
+        self.t_end = time.perf_counter()
+
+    def result(self) -> dict:
+        """Wait for the command (up to 600 s) and check what it printed
+        and wrote; returns its assignments, stats and metas."""
+        try:
+            self.proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            self.close()
+        self._reader.join(10.0)
+        wall = time.perf_counter() - self.t0
+        text = "".join(self.lines)
+        self._err.seek(0)
+        require(self.proc.returncode == 0, f"examples/quickstart_torch.py "
+                f"--topology tcp exited {self.proc.returncode}: "
+                f"{self._err.read()[-2000:]}")
+        require(self.apps is not None, "the example announced no servers")
+        print(f"[quickstart] (a) servers up: nvidia-smi compute apps before "
+              f"{len(self.before)}, with the example and its two servers "
+              f"{len(self.apps)}")
+        require(len(self.apps) - len(self.before) >= 3,
+                f"(a) {len(self.apps) - len(self.before)} new compute "
+                "processes for the example and its two --device cuda "
+                "servers")
+        trace = json.loads(self.trace.read_text())
+        flows = {(e["id"], e["pid"]) for e in trace["traceEvents"]
+                 if e["ph"] in ("s", "t", "f")}
+        crossing = ({i for i, p in flows if p == 0}
+                    & {i for i, p in flows if p > 0})
+        out = {"assignments": parsed_line(text, "cluster assignments:"),
+               "stats": parsed_line(text, "async stats:"),
+               "metas": {}}
+        for line in text.splitlines():
+            if line.startswith("  cluster ") and "round=" in line:
+                key, rest = line.split("cluster ", 1)[1].split(": ", 1)
+                fields = dict(f.split("=") for f in rest.split())
+                out["metas"][key] = [int(fields["round"]),
+                                     int(fields["samples"])]
+        for line in text.splitlines():
+            if line.startswith(("topology ", "async stats:", "  cluster ",
+                                "  transport=", "new org assigned",
+                                "telemetry sites:")):
+                print(f"[quickstart] (a) {line.strip()}")
+        require("  transport=tcp respawns=0 " in text,
+                "(a) no 'transport=tcp respawns=0' line")
+        require("new org assigned to ['loc:0']" in text, "(a) no join line")
+        require("telemetry sites: ['parent', 'shard-0', 'shard-1']" in text,
+                "(a) the metrics summary lacks the servers' sites")
+        require(len(out["metas"]) == 2, f"(a) cluster metas {out['metas']}")
+        print(f"[quickstart] (a) examples/quickstart_torch.py --topology tcp "
+              f"--metrics --trace-out <tmp>/spans.json: exit 0 in "
+              f"{wall:.1f} s (process start included); trace "
+              f"{len(trace['traceEvents'])} events, {len(crossing)} flow "
+              f"chains from the parent to a server")
+        require(crossing, "(a) no flow chain of the trace reaches a server")
+        return out
+
+    def close(self):
+        """Stop the command if it still runs, its servers with it (one
+        process group)."""
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self._reader.join(10.0)
+        self._err.close()
+        self._dir.cleanup()
+
+
+def quickstart_reduced(dev, init) -> tuple[dict, dict]:
+    """(b): single, sharded and process at the example's size from
+    ``init`` (the process topology is the sim's in-process emulation, as
+    in the reference: its workers fold in this process).  Returns each
+    run's summary and the launches of the three runs."""
+    from repro_torch.configs import get_config, reduced_for_smoke
+
+    layers = reduced_for_smoke(get_config(QUICKSTART_FULL)).n_layers
+    runs, total = {}, {}
+    for topology in QUICKSTART_TOPOLOGIES:
+        out, counts, steps, implied, wall, _, _ = quickstart_counted(
+            dev, topology, init=init)
+        print(f"[quickstart] (b) {topology}: {wall:.2f} s ({wall:.4f} s), "
+              f"{steps} AdamW steps, stats {json.dumps(out['stats'])}, fold "
+              f"launches {counts['fedavg_agg']} (implied {implied}), "
+              f"local_attn forward {counts['local_attn_tf32']} and backward "
+              f"{counts['local_attn_bwd_tf32']} on split tf32")
+        require_attention_launches(counts, layers, steps, "tf32",
+                                   f"quickstart {topology}")
+        require(counts["fedavg_agg"] == implied and implied > 0,
+                f"quickstart {topology}: {counts['fedavg_agg']} fold "
+                f"launches, the recorded folds imply {implied}")
+        runs[topology] = quickstart_summary(out)
+        total = add_counts(total, counts)
+    first = runs["single"]["info"]
+    for topology, run in runs.items():
+        info = run["info"]
+        require(info["assignments"] == first["assignments"]
+                and sim_stats(info["stats"]) == first["stats"]
+                and info["metas"] == first["metas"]
+                and info["join"] == first["join"],
+                f"quickstart {topology}: assignments, stats, metas or join "
+                "differ from single's")
+    return runs, total
+
+
+def sim_stats(stats) -> dict:
+    """A run's stats without the store tier's own keys."""
+    return {k: v for k, v in stats.items()
+            if k not in QUICKSTART_TIER_FIELDS}
+
+
+def quickstart_full(dev, reduced: dict) -> dict:
+    """(c): gemma-2b at full width and QUICKSTART_FULL_DEPTH in its own
+    bf16 on the sharded store: QUICKSTART_UPDATES updates, the reduced run's
+    assignments, one tensor-core local_attn forward and backward a layer a
+    step, fold launches = implied, the global model moved, the join's
+    params the Vienna cluster model's.  Wall time, peak memory and the
+    fold's share printed.  Returns the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(QUICKSTART_FULL)
+    cfg = cfg.replace(n_layers=QUICKSTART_FULL_DEPTH)
+    init = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, counts, steps, implied, wall, fold_s, _ = quickstart_counted(
+        dev, "sharded", cfg=cfg, init=init, timed=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    store = out["fed"].store
+    moved = any(bool(torch.any(a != b)) for a, b in zip(
+        tree_leaves(store.params("global")), tree_leaves(init), strict=True))
+    keys, params = out["join"]
+    joined = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(store.params("cluster", keys[0])),
+        strict=True))
+    n_params = sum(x.numel() for x in tree_leaves(init))
+    print(f"[quickstart] (c) {QUICKSTART_FULL} at full width, "
+          f"{cfg.n_layers} of {get_config(QUICKSTART_FULL).n_layers} layers "
+          f"(d_model {cfg.d_model}, head_dim "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{n_params:,} parameters) on the sharded store: {wall:.1f} s "
+          f"({wall:.4f} s) for {steps} AdamW steps, peak memory "
+          f"{peak:.2f} GiB, folds {fold_s:.2f} s ({fold_s / wall:.4f} of "
+          f"the run), stats {json.dumps(out['stats'])}, fold launches "
+          f"{counts['fedavg_agg']} (implied {implied}), local_attn forward "
+          f"{counts['local_attn_tc']} and backward "
+          f"{counts['local_attn_bwd_tc']} on the tensor cores, global model "
+          f"moved {moved}, join {keys} equal to its cluster model {joined}; "
+          f"card: {card_line()}")
+    require(out["stats"]["updates"] == QUICKSTART_UPDATES,
+            f"quickstart full: {out['stats']['updates']} updates")
+    require(as_json(out["assignments"]) == reduced["assignments"]
+            and keys == reduced["join"],
+            "quickstart full: assignments or join differ from the reduced "
+            "run's")
+    require_attention_launches(counts, cfg.n_layers, steps, "tc",
+                               "quickstart full")
+    require(counts["fedavg_agg"] == implied and implied > 0,
+            f"quickstart full: {counts['fedavg_agg']} fold launches, the "
+            f"recorded folds imply {implied}")
+    require(moved, "quickstart full: the global model equals its init")
+    require(joined, "quickstart full: the join's params are not its "
+                    "cluster model's")
+    return counts
+
+
+def models_gap(a: dict, b: dict) -> tuple[float, float]:
+    """(max abs difference over every model's leaves, max |p| of ``b``)."""
+    gap = top = 0.0
+    for name, leaves in a.items():
+        for x, y in zip(leaves, b[name], strict=True):
+            gap = max(gap, (x - y).abs().max().item())
+            top = max(top, y.abs().max().item())
+    return gap, top
+
+
+def check_quickstart_cpu(card: dict, tcp: dict, cpu: dict):
+    """The card's runs against the CPU child's: (b) each topology's
+    assignments, stats, metas and join equal, and every model within
+    QUICKSTART_RTOL x max(1, max|p|) or, where 96 AdamW steps amplify
+    rounding past that, within QUICKSTART_WITNESS times what one ulp of
+    the initial weights moves the CPU run (``<topology>_ulp``); (a)'s
+    printed assignments, stats and metas equal to the CPU's tcp run."""
+    for topology, run in card.items():
+        want = cpu[topology]
+        gap, top = models_gap(run["params"], want["params"])
+        witness = models_gap(cpu[f"{topology}_ulp"]["params"],
+                             want["params"])[0]
+        rtol = QUICKSTART_RTOL * max(1.0, top)
+        limit = max(rtol, QUICKSTART_WITNESS * witness)
+        same = run["info"] == json.loads(want["info"])
+        print(f"[quickstart] (b) {topology} against the CPU: assignments, "
+              f"stats, metas and join {'equal' if same else 'DIFFER'}; "
+              f"params max abs diff {gap:.3e} ({QUICKSTART_RTOL:g} x "
+              f"max(1, max|p|) = {rtol:.3e} "
+              f"{'met' if gap <= rtol else 'missed'}; the CPU run moved "
+              f"{witness:.3e} by one ulp of its initial weights; limit "
+              f"{limit:.3e})")
+        require(same, f"quickstart {topology}: the card's run differs from "
+                      "the CPU's")
+        require(gap <= limit, f"quickstart {topology}: params differ from "
+                              f"the CPU's by {gap}")
+    want = json.loads(cpu["tcp"]["info"])
+    same = all(tcp[k] == want[k] for k in ("assignments", "stats", "metas"))
+    print(f"[quickstart] (a) tcp against the CPU's tcp run: assignments, "
+          f"stats and metas {'equal' if same else 'DIFFER'}")
+    require(same, f"quickstart tcp: printed {tcp} differs from the CPU's "
+                  f"{want}")
+
+
+def phase_quickstart(dev) -> tuple[dict, dict, dict]:
+    """Phase 16 (see the module docstring): (a) runs in the background
+    while (b) and (c) run here (neither starts a process).  Returns the
+    launches of (b) and (c), (b)'s summaries and (a)'s printed run."""
+    import torch
+
+    t0 = time.perf_counter()
+    command = QuickstartCommand()
+    try:
+        runs, counts = quickstart_reduced(dev, quickstart_init())
+        torch.cuda.empty_cache()
+        t_full = time.perf_counter()
+        counts = add_counts(counts, quickstart_full(
+            dev, runs["single"]["info"]))
+        torch.cuda.empty_cache()
+        tcp = command.result()
+    finally:
+        command.close()
+    print(f"[quickstart] (a) ran beside (c) for "
+          f"{max(0.0, command.t_end - t_full):.1f} s")
+    first = runs["single"]["info"]
+    same = (tcp["assignments"] == first["assignments"]
+            and tcp["metas"] == first["metas"])
+    print(f"[quickstart] (a) against (b): assignments and metas "
+          f"{'equal' if same else 'DIFFER'}; stats on the sim's keys "
+          f"{json.dumps(sim_stats(tcp['stats']))} against "
+          f"{json.dumps(first['stats'])} (tcp's lazy mirror sync, every 4 "
+          f"drains, leaves the updates of folds not yet synced out of the "
+          f"run's stats, as in the reference; held to the CPU's tcp run)")
+    require(same, "quickstart: (a)'s assignments or metas differ from (b)'s")
+    print(f"[quickstart] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"card: {card_line()}")
+    return counts, runs, tcp
+
+
+# ----------------------------------------------------------------- phase 17
+# the reference's chaos scenario (tests/test_scenarios.py,
+# test_chaos_outage_migration_worker_kill) on the card
+CHAOS = dict(n_clients=5_000, n_ticks=16, n_clusters=8, seed=11)
+CHAOS_SLO = dict(lost_updates=0, effective_round_regressions=0)
+CHAOS_GONE_S = 15.0         # a killed process leaves nvidia-smi's list
+
+
+def chaos_inject(store, rep, *, kill: bool):
+    """Mid-storm rebalance (+ optional crash): migrate the hottest
+    cluster to the next shard, then sever the destination worker."""
+    dst = (store.shard_of("c0") + 1) % store.n_shards
+    store.migrate_cluster("c0", dst)
+    if kill:
+        store._debug_kill_worker(dst)
+
+
+def chaos_scenario(param_dim: int = 16):
+    """The reference's chaos scenario; ``param_dim`` 16 is its default."""
+    from repro_torch.scenario import regional_outage
+
+    return regional_outage(**CHAOS, param_dim=param_dim)
+
+
+def chaos_cpu() -> dict:
+    """The CPU child's job: the sharded chaos run's fields and final
+    params and anchors, as JSON."""
+    from repro_torch.scenario import run_scenario
+
+    rep = run_scenario(chaos_scenario(), topology="sharded", n_shards=2,
+                       inject={6: lambda s, r: chaos_inject(s, r,
+                                                            kill=False)},
+                       device="cpu")
+    return {"fields": as_json(report_fields(rep)),
+            "ewc": {part: {k: v.tolist() for k, v in rep.ewc[part].items()}
+                    for part in ("final_params", "anchors")}}
+
+
+def await_departure(n: int, what: str):
+    """Wait until nvidia-smi lists ``n`` compute processes (a killed one
+    has left the card)."""
+    deadline = time.monotonic() + CHAOS_GONE_S
+    while len(compute_apps()) != n:
+        require(time.monotonic() < deadline, f"{what}: nvidia-smi still "
+                f"lists {len(compute_apps())} compute processes, not {n}, "
+                f"{CHAOS_GONE_S} s after the kill")
+        time.sleep(0.2)
+
+
+def chaos_stores(dev, widths) -> tuple[list, list]:
+    """One process store (2 spawned CUDA workers) a width, built on
+    threads of their own so that every worker's cold start overlaps;
+    returns the stores and the compute processes listed before them."""
+    import threading
+
+    from repro_torch.obs.record import Telemetry
+    from repro_torch.scenario.engine import make_store
+
+    before = compute_apps()
+    stores, errors = [None] * len(widths), []
+
+    def build(i, width):
+        try:
+            stores[i] = make_store(
+                "process", cluster_keys=[f"c{j}" for j in
+                                         range(CHAOS["n_clusters"])],
+                n_shards=2, telemetry=Telemetry(sample_n=64, site="parent"),
+                max_coalesce=16, param_dim=width, device=dev)
+        except BaseException as e:      # raised below, on this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(i, w))
+               for i, w in enumerate(widths)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for store in stores:
+            if store is not None:
+                store.close()
+        raise errors[0]
+    require_on_card([sh.handle.proc.pid for st in stores
+                     for sh in st._proc_shards], before,
+                    "chaos process: spawned workers")
+    return stores, before
+
+
+def chaos_process(dev, store, live: int, tag: str):
+    """The chaos run on ``store`` (process topology, 2 spawned CUDA
+    workers; ``live`` compute processes listed as it starts), the
+    destination worker killed at tick 6 after the migration: the SLOs, a
+    respawn, the killed worker gone from the card and its successor on it.
+    Closes the store.  Returns (report, counts, routes)."""
+    scen = chaos_scenario(store.params("global")["w"].numel())
+    try:
+        handles = [sh.handle for sh in store._proc_shards]
+        killed, first = [], [h.cold_start_s for h in handles]
+
+        def inject(s, r):
+            chaos_inject(s, r, kill=True)
+            killed.extend(h for h in handles if not h.alive())
+            await_departure(live - 1, tag)
+
+        rep, counts, routes, wall, _ = scenario_run(
+            scen, dev, topology="process", store=store, inject={6: inject})
+        apps = compute_apps()
+        spawns = store.worker_spawns()
+        print_scenario(rep, counts, wall, tag)
+        print(f"[chaos] {tag}: migrations {rep.stats['cluster_migrations']},"
+              f" respawns {rep.stats['respawns']}, spawns {spawns}, killed "
+              f"worker {[h.idx for h in killed]}, cold starts "
+              f"{[round(t, 3) for t in first]} s, the respawn's "
+              f"{[round(h.cold_start_s, 3) for h in killed]} s, wire bytes "
+              f"tx {rep.stats['wire_tx_bytes']} rx "
+              f"{rep.stats['wire_rx_bytes']}, nvidia-smi compute apps at the "
+              f"start {live}, after the kill {live - 1}, at the end "
+              f"{len(apps)}, devices {[h.device for h in handles]}")
+        require(len(killed) == 1, f"{tag}: {len(killed)} workers dead after "
+                                  "the kill")
+        require_chaos(rep, tag, respawned=True)
+        require(sum(spawns) == len(spawns) + rep.stats["respawns"]
+                and len(apps) == live
+                and all(h.alive() and h.device.startswith("cuda")
+                        for h in handles),
+                f"{tag}: the respawned worker is not on the card (spawns "
+                f"{spawns}, {len(apps)} compute apps, {live} at the start)")
+    finally:
+        store.close()
+    return rep, counts, routes
+
+
+def require_chaos(rep, tag, respawned: bool):
+    """The reference test's assertions."""
+    rep.assert_slo(**CHAOS_SLO)
+    require(rep.stats["cluster_migrations"] >= 1,
+            f"{tag}: no cluster migration")
+    if respawned:
+        require(rep.stats["respawns"] >= 1, f"{tag}: no respawn")
+
+
+def chaos_tcp(dev, srv):
+    """The tcp topology on the shared ``--device cuda`` servers ``srv``:
+    the worker killed at tick 6 (its session dropped), server 0 killed at
+    tick 10 (gone from the card) and respawned on its port with the same
+    device (on the card again).  Returns (report, counts, routes)."""
+    scen = chaos_scenario()
+    before = compute_apps()
+    respawned = {}
+
+    def kill_server(store, rep):
+        srv.kill(0)
+        await_departure(len(before) - 1, "chaos tcp")
+        srv.respawn(0)
+        respawned.update(apps=compute_apps(), cold_s=srv.startup_s[0],
+                         pid=srv.pids[0])
+
+    inject = {6: lambda s, r: chaos_inject(s, r, kill=True),
+              10: kill_server}
+    rep, counts, routes, wall, _ = scenario_run(
+        scen, dev, topology="tcp", hosts=srv.hosts, inject=inject)
+    print_scenario(rep, counts, wall, "chaos tcp")
+    print(f"[chaos] tcp: migrations {rep.stats['cluster_migrations']}, "
+          f"respawns {rep.stats['respawns']}, server 0 respawned in "
+          f"{respawned.get('cold_s', float('nan')):.3f} s on --device "
+          f"{srv.device}; nvidia-smi compute apps before {len(before)}, "
+          f"after the kill {len(before) - 1}, after the respawn "
+          f"{len(respawned.get('apps', ()))}; wire bytes tx "
+          f"{rep.stats['wire_tx_bytes']} rx {rep.stats['wire_rx_bytes']}")
+    require_chaos(rep, "chaos tcp", respawned=True)
+    require(respawned and len(respawned["apps"]) == len(before)
+            and srv.device.startswith("cuda"),
+            "chaos tcp: the respawned server is not on the card")
+    return rep, counts, routes
+
+
+def phase_chaos(dev, srv) -> tuple[dict, dict, dict]:
+    """Phase 17 (see the module docstring).  Returns the launches and
+    routes of the runs in this process, summed, and the sharded run's
+    report for the CPU check."""
+    t0 = time.perf_counter()
+    kill6 = {6: lambda s, r: chaos_inject(s, r, kill=False)}
+    rep, counts, routes, wall, folds = scenario_run(
+        chaos_scenario(), dev, topology="sharded", n_shards=2, inject=kill6)
+    print_scenario(rep, counts, wall, "chaos sharded")
+    require_chaos(rep, "chaos sharded", respawned=False)
+    implied = implied_launches(folds)
+    require(counts["fedavg_agg"] == implied and implied > 0,
+            f"chaos sharded: {counts['fedavg_agg']} fold launches, the "
+            f"drain batches imply {implied}")
+    runs = [(counts, routes), chaos_tcp(dev, srv)[1:]]
+    sharded = rep
+    (narrow, wide), before = chaos_stores(dev, (16, SOLAR_PARAMS))
+    runs.append(chaos_process(dev, narrow, len(before) + 4,
+                              "chaos process")[1:])
+    runs.append(chaos_process(dev, wide, len(before) + 2,
+                              f"chaos process at width {SOLAR_PARAMS:,}")[1:])
+    counts, routes = sum_counts(*runs)
+    require(counts["fedavg_agg"] > 0, "chaos: no fold launched in this "
+                                      "process")
+    print(f"[chaos] phase wall {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}")
+    return counts, routes, sharded
+
+
+def check_chaos_cpu(card, cpu: dict):
+    """The sharded chaos run on the card against the CPU child's: every
+    field but timings equal, final params and anchors within 1e-5."""
+    import types
+
+    import numpy as np
+
+    gap, top = final_gap(card, types.SimpleNamespace(ewc={
+        part: {k: np.asarray(v, dtype=np.float32) for k, v in arrays.items()}
+        for part, arrays in cpu["ewc"].items()}))
+    same = as_json(report_fields(card)) == cpu["fields"]
+    print(f"[chaos] sharded on the card against the CPU: fields "
+          f"{'equal' if same else 'DIFFER'}, final params max abs diff "
+          f"{gap:.3e} (limit {1e-5 * max(1.0, top):.3e})")
+    require(same, "chaos: the card's sharded run differs from the CPU's")
+    require(gap <= 1e-5 * max(1.0, top),
+            f"chaos: params differ from the CPU's by {gap}")
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         os.execve(sys.executable, [sys.executable, __file__, *sys.argv[1:]],
@@ -5061,9 +5798,11 @@ def main() -> int:
             counts["process"], routes["process"] = phase_process(dev, srv)
             mark("process")
             paths, telemetry16 = phase_telemetry_scenario(dev, srv)
-        for path, (c, r) in paths.items():
-            counts[path], routes[path] = c, r
-        mark("telemetry and scenario")
+            for path, (c, r) in paths.items():
+                counts[path], routes[path] = c, r
+            mark("telemetry and scenario")
+            counts["chaos"], routes["chaos"], chaos = phase_chaos(dev, srv)
+        mark("chaos")
         # phase 12's CPU weights and the child's gradients, made beside
         # phases 11 and 12
         cases = AgreeCases(child)
@@ -5079,6 +5818,10 @@ def main() -> int:
         mark("train")
         counts["distribution"], counts["launch"] = phase_distribution(dev)
         mark("distribution")
+        counts["quickstart"], quick, quick_tcp = phase_quickstart(dev)
+        mark("quickstart")
+        check_quickstart_cpu(quick, quick_tcp, child.tensors("quickstart"))
+        check_chaos_cpu(chaos, child.result("chaos"))
         check_sharded_cpu(card16, child.result("sharded"))
         check_telemetry_cpu(child.result("telemetry"), *telemetry16)
     except SmokeFailure as exc:

@@ -610,16 +610,17 @@ def load_kernels(device) -> None:
         build.library()
 
 
-def worker_main(shard_idx: int, cmd_q, rsp_q, seed_blob: bytes, device):
-    """Spawned shard-server entry point.  Announces ``["ready", idx]`` once
-    the worker is built on its device (CUDA context and kernel library
-    loaded), then decodes, dispatches and replies.  Each command arrives as
+def worker_main(shard_idx: int, cmd_q, rsp_q, device):
+    """Spawned shard-server entry point.  Takes its seed blob as the first
+    item of ``cmd_q``, announces ``["ready", idx]`` once the worker is
+    built on its device (CUDA context and kernel library loaded), then
+    decodes, dispatches and replies.  Each command arrives as
     ``(trace_ctx, raw)``: the sender's trace context, restored around the
     dispatch as a TCP server restores a frame's.  Errors of fire-and-forget
     commands become the error reply of the next replying command (replies
     pair positionally)."""
     load_kernels(device)
-    worker = ShardWorker(shard_idx, seed_blob, device)
+    worker = ShardWorker(shard_idx, cmd_q.get()[1], device)
     rsp_q.put(packb(["ready", shard_idx]))
     while True:
         trace, raw = cmd_q.get()
@@ -674,12 +675,17 @@ class ProcessWorkerHandle(Transport):
     def _start(self, seed_blob: bytes):
         self.cmd_q = self._ctx.Queue()
         self.rsp_q = self._ctx.Queue()
+        # the seed goes by the queue, not the spawn's arguments: a child
+        # unpickles its arguments while it imports torch, so a blob larger
+        # than the pipe's buffer held this thread (and the next worker's
+        # spawn) for that import
         self.proc = self._ctx.Process(
             target=worker_main,
-            args=(self.idx, self.cmd_q, self.rsp_q, seed_blob, self.device),
+            args=(self.idx, self.cmd_q, self.rsp_q, self.device),
             daemon=True, name=f"fedccl-shard-{self.idx}")
         self._t_start = clock.monotonic()
         self.proc.start()
+        self.cmd_q.put((None, seed_blob))
         self.spawns += 1
         self._ready = False
 
