@@ -211,7 +211,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
              configs' bf16 (``build_train_step``, AdamW), counters set to 0
              just before each step and read just after: mamba2-370m and
              gemma-2b, 3 steps each at B 2 x S 2048 on one
-             ``lm_batch(structure=1.0)``, exactly one forward and one
+             ``llm_batch(structure=1.0)``, exactly one forward and one
              backward launch of ssd_chunk / local_attn a layer (gemma's
              forwards and backwards on the tensor-core routes), the loss
              falling, wall time, tokens/s, peak memory and the device's
@@ -223,6 +223,19 @@ Phases, each fatal on failure (non-zero exit, no final line):
              4 organisations, 2 rounds): the
              eval loss falls, FED_LLM_UPDATES updates, fold launches equal
              to what the recorded folds imply, the global model moved.
+             Then ("train families", its own ``[time]`` line) four more
+             families at full width in bf16 under ``remat="full"``,
+             AdamW with bf16 moments, at their scoring shapes and their
+             depth cuts (REMAT_TRAIN; the allocator's segments
+             expandable): 3 steps each, exactly ``step_launches``' counts
+             (two tensor-core local_attn forwards a scanned attention
+             block, one an unrolled block, one backward a block), the loss
+             falling, the peak leaving TRAIN_SPARE_GIB of the card; and a
+             remat witness a family: a step under "none" and one under
+             "full" from one state, the loss bit-equal, grad_norm within
+             REMAT_GNORM_RTOL, every parameter within one bf16 rounding
+             step, and less memory added by the forward and backward
+             under "full".
 15. distribution — the mesh rules, ``ClusterParallel`` and the launchers
              (counters set to 0 just before each run, read just after):
              gemma-2b at full width in bf16 scored (2 x 2048) with its
@@ -515,22 +528,50 @@ BWD_RTOL, BWD_BF16_RTOL, BWD_F64_FACTOR = 1e-4, 2e-2, 2.0
 LAUNCH_ATTN = (2, 4, 1, 64, 64)
 # local_attn's backward: (B, H, KV, S, D, causal, window, dtype): gemma-2b's
 # training shape in bf16 (the path) and f32, launch.train's shape in f32,
-# RecurrentGemma's window 2048 at S 4096, and head dims 80 and 192
-# (zero-padded to 128 and 256)
+# RecurrentGemma's window 2048 at S 4096 (in bf16 its training's shape on
+# the tensor-core route), and head dims 80 and 192 (zero-padded to 128 and
+# 256)
 ATTN_BWD_CASES = ((2, 8, 1, 2048, 256, True, 0, "bfloat16"),
                   (2, 8, 1, 2048, 256, True, 0, "float32"),
                   (*LAUNCH_ATTN, True, 0, "float32"),
                   (1, 16, 1, 4096, 256, True, 2048, "float32"),
+                  (1, 16, 1, 4096, 256, True, 2048, "bfloat16"),
                   (1, 16, 16, 1024, 80, False, 0, "float32"),
                   (1, 16, 16, 1024, 80, False, 0, "bfloat16"),
                   (1, 16, 16, 1024, 192, True, 0, "bfloat16"))
-# phase 14: training at full width and depth in the configs' bf16, three
-# AdamW steps on one batch each (batch, S); gemma-2b's moments in bf16 (the
-# reference's moment_dtype, for the 80 GB: f32 moments, old and new, would
-# be 40 GB beside 2.5 B parameters and their f32 gradients and updates)
-LLM_TRAIN = {"mamba2-370m": (2, 2048), "gemma-2b": (2, 2048)}
+# phase 14: training at full width in the configs' bf16, three AdamW steps
+# on one batch each (batch, S: the family's scoring shape); moments in bf16
+# but mamba2's (the reference's moment_dtype, for the 80 GB: f32 moments,
+# old and new, would be 40 GB beside gemma-2b's 2.5 B parameters and their
+# f32 gradients and updates)
+LLM_TRAIN = {"mamba2-370m": (2, 2048), "gemma-2b": (2, 2048),
+             "deepseek-moe-16b": (2, 2048), "recurrentgemma-9b": (2, 4096),
+             "hubert-xlarge": (2, 4096), "internvl2-76b": (2, 256 + 2048)}
 TRAIN_STEPS, TRAIN_LR = 3, 3e-4
-TRAIN_MOMENTS = {"mamba2-370m": "float32", "gemma-2b": "bfloat16"}
+TRAIN_MOMENTS = {arch: "float32" if arch == "mamba2-370m" else "bfloat16"
+                 for arch in LLM_TRAIN}
+# the four families of PR 28 train under remat "full" at the deepest depth
+# whose step leaves TRAIN_SPARE_GIB of the card free, in whole repeated
+# units (train_unit), hubert-xlarge at its full 48, the allocator's
+# segments expandable (tools/train_memory.py measures the depths; AdamW's
+# update holds ~20 bytes a parameter at the step's peak, PERF.md §6):
+# (depth, the remat witness's depth, where a step under "none" fits
+# beside the parameters the witness keeps, AdamW's rate).  The rates: at
+# 1e-5 each of the first three families' three losses fell at its depth in
+# the probe (at 3e-4 deepseek-moe's and hubert's rose); internvl2's at
+# 3e-6, the largest of the probe's rates at which they fell: AdamW's first
+# step moves every weight by ~lr, and its q/k/v start at std
+# 1/sqrt(8192 x 64) (the fan-in counts the head axis, as the reference's
+# initializer does), so at 1e-5 its loss rose from 12.72 to 18.86
+REMAT_TRAIN = {"deepseek-moe-16b": (6, 5, 1e-5),
+               "recurrentgemma-9b": (6, 3, 1e-5),
+               "hubert-xlarge": (None, None, 1e-5),
+               "internvl2-76b": (1, 1, 3e-6)}
+TRAIN_SPARE_GIB = 4.0
+# the remat witness: one step under "full" against one under "none" from
+# the same state, grad_norm within REMAT_GNORM_RTOL, every parameter within
+# one bf16 rounding step (relative 2^-8 of the larger value)
+REMAT_GNORM_RTOL = 1e-6
 EWC_LAMBDA = 10.0
 EWC_PENALTY_RTOL = 1e-5
 # phase 12: the CUDA gradients of the depth-2 f32 models against the CPU's
@@ -4048,8 +4089,9 @@ def llm_model(arch, dev, dtype=None, depth=None, generator=None, narrow=None):
     return cfg, model, model.init(gen, dev)
 
 
-def llm_batch(cfg, rng, b, seq, n_patch=None):
-    """A numpy batch of the family's kind, ``seq`` positions a row: tokens,
+def llm_batch(cfg, rng, b, seq, n_patch=None, structure=0.5):
+    """A numpy batch of the family's kind, ``seq`` positions a row: tokens
+    (``lm_batch`` with its copy pattern in ``structure`` of the rows),
     audio frames (``audio_batch``) or ``n_patch`` patches (the config's
     own count unless given) then text tokens (``vlm_batch``)."""
     from repro_torch.data.lm_synth import audio_batch, lm_batch, vlm_batch
@@ -4060,7 +4102,7 @@ def llm_batch(cfg, rng, b, seq, n_patch=None):
     if cfg.family == "vlm":
         return vlm_batch(rng, b, seq, n_patch or cfg.frontend.tokens_per_sample,
                          cfg.frontend.embed_dim, cfg.vocab_size)
-    return lm_batch(rng, b, seq, cfg.vocab_size)
+    return lm_batch(rng, b, seq, cfg.vocab_size, structure)
 
 
 def kernel_blocks(cfg) -> int:
@@ -4663,34 +4705,74 @@ def add_counts(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
 
 
-def train_steps(dev, arch):
-    """TRAIN_STEPS AdamW steps of ``arch`` at full width and depth in the
-    config's bf16 on one ``lm_batch(structure=1.0)``, counters set to 0
-    just before each step and read just after: one forward and one
-    backward launch of the path's kernel a layer (gemma-2b's forwards and
-    backwards all on the tensor-core routes), no other kernel; the loss
-    must fall.
-    Returns (counts summed over the steps, the initial parameters, the
-    state after the steps, the step, the batch)."""
+def train_unit(arch) -> tuple[int, int]:
+    """(the depth's step, its smallest value) of ``arch``'s training cuts:
+    recurrentgemma's whole (rec, rec, attn) groups, deepseek-moe's dense
+    first layer and at least one MoE layer, one layer otherwise."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        unit = len(cfg.rglru.block_pattern)
+        return unit, unit
+    if cfg.is_moe:
+        return 1, cfg.moe.first_k_dense + 1
+    return 1, 1
+
+
+def step_launches(cfg) -> dict:
+    """Every counter of ``path_counts`` a training step of ``cfg`` moves:
+    one forward and one backward of the path's kernel a block walked,
+    gemma-2b's and the remat families' all on the tensor-core routes; under
+    a remat, a second forward of each attention block in a "scan"
+    segment (its recompute in the backward)."""
+    from repro_torch.models.blocks import ATTN_KINDS, stack_layout
+
+    want = {name: 0 for name in path_counts()}
+    blocks = kernel_blocks(cfg)
+    if cfg.family == "ssm":
+        again = 0 if cfg.remat == "none" else cfg.n_layers
+        want.update(ssd_chunk=2 * blocks + again, ssd_chunk_bwd=blocks)
+        return want
+    again = 0 if cfg.remat == "none" else sum(
+        repeat * sum(k in ATTN_KINDS for k in kinds)
+        for mode, kinds, repeat in stack_layout(cfg) if mode == "scan")
+    want.update(local_attn=2 * blocks + again, local_attn_bwd=blocks,
+                local_attn_tc=blocks + again, local_attn_bwd_tc=blocks)
+    return want
+
+
+def train_steps(dev, arch, depth=None, remat="none", lr=TRAIN_LR,
+                keep_init=False):
+    """TRAIN_STEPS AdamW steps of ``arch`` at rate ``lr``, full width in the
+    config's bf16, cut to ``depth`` layers, under ``remat``, on one
+    ``llm_batch`` (text rows all with the copy pattern), counters set to 0
+    just before each step and read just after: ``step_launches`` and no
+    other kernel; the loss must fall and the peak leave TRAIN_SPARE_GIB of
+    the card free.
+    Returns (counts summed over the steps, the initial parameters if
+    ``keep_init``, the state after the steps, the batch)."""
     import numpy as np
     import torch
-    from repro_torch.data.lm_synth import lm_batch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.training.train_step import TrainState, build_train_step
 
-    cfg, model, params = llm_model(arch, dev)
+    cfg, _, params = llm_model(arch, dev, depth=depth)
+    cfg = cfg.replace(remat=remat)
     b, seq = LLM_TRAIN[arch]
-    batch = lm_batch(np.random.default_rng(4), b, seq, cfg.vocab_size,
-                     structure=1.0)
-    opt = adamw(TRAIN_LR, moment_dtype=getattr(torch, TRAIN_MOMENTS[arch]))
-    step = build_train_step(model, cfg, opt)
+    batch = llm_batch(cfg, np.random.default_rng(4), b, seq, structure=1.0)
+    opt = adamw(lr, moment_dtype=getattr(torch, TRAIN_MOMENTS[arch]))
+    step = build_train_step(build_model(cfg), cfg, opt)
     state = TrainState(params, opt.init(params))
-    kernel = LLM[arch].kernel
-    want = {name: 0 for name in path_counts()}
-    want[kernel], want[f"{kernel}_bwd"] = 2 * cfg.n_layers, cfg.n_layers
-    if kernel == "local_attn":
-        want["local_attn_tc"] = want["local_attn_bwd_tc"] = cfg.n_layers
+    init = params if keep_init else None
+    del params
+    want = step_launches(cfg)
+    full = get_config(arch).n_layers
+    room = (torch.cuda.get_device_properties(dev).total_memory / 2**30
+            - TRAIN_SPARE_GIB)
     total, losses = {}, []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -4703,21 +4785,157 @@ def train_steps(dev, arch):
         wall = time.perf_counter() - t0
         counts = path_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[train] {arch} ({cfg.n_layers} layers, {cfg.dtype}, AdamW "
-              f"lr {TRAIN_LR}, {TRAIN_MOMENTS[arch]} moments) step {i + 1}, "
-              f"batch {b} x {seq}: loss {loss:.6f}, grad_norm "
+        print(f"[train] {arch} ({cfg.n_layers} of {full} layers, "
+              f"{cfg.dtype}, remat "
+              f"{remat}, AdamW lr {lr}, {TRAIN_MOMENTS[arch]} moments)"
+              f" step {i + 1}, batch {b} x {seq}: loss {loss:.6f}, ce "
+              f"{metrics['ce'].item():.6f}, grad_norm "
               f"{metrics['grad_norm'].item():.4f}, {wall * 1e3:.1f} ms wall, "
               f"{b * seq / wall:.0f} tokens/s, peak memory {peak:.2f} GiB, "
               f"launches {json.dumps(counts)}")
         require(math.isfinite(loss), f"{arch}: step {i + 1} loss {loss}")
         require(counts == want, f"{arch} step {i + 1} launched {counts}, "
                                 f"expected {want}")
+        require(peak <= room, f"{arch}: peak {peak:.2f} GiB leaves less "
+                              f"than {TRAIN_SPARE_GIB} GiB of the card")
         total = add_counts(total, counts)
         losses.append(loss)
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall over "
                                     f"{TRAIN_STEPS} steps: {losses}")
     device_profile(f"train {arch}", lambda: step(state, batch))
-    return total, params, state, batch
+    return total, init, state, batch
+
+
+class expandable_segments:
+    """The caching allocator's expandable segments, on inside the block:
+    training steps at full width allocate and free tensors of GiBs
+    (recurrentgemma's f32 logits over a 256,000 vocabulary are 8 GiB each),
+    and fixed segments fragmented under them: recurrentgemma ran out of
+    memory in the backward of a step that had fit twice, 23.6 GiB
+    allocated, and gemma-2b's profiled step after the smoke's earlier
+    phases with 35.25 GiB reserved but unallocated (PERF.md §6)."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.empty_cache()
+        self.set = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                           torch.cuda.memory._set_allocator_settings)
+        self.set("expandable_segments:True")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.set("expandable_segments:False")
+        torch.cuda.empty_cache()
+
+
+class step_parts:
+    """Which part of ``build_train_step``'s step runs (``part``: the loss's
+    forward, its gradient, or the update from the clip on) and the peak
+    memory when the update starts (``grad_peak``, bytes: the forward's and
+    the backward's, activations included), by wrapping the train-step
+    module's ``loss_for_batch`` and ``clip_by_global_norm``."""
+
+    def __init__(self):
+        import torch
+        import repro_torch.training.train_step as ts
+
+        self.mod, self.part, self.grad_peak = ts, None, None
+        self.orig = (ts.loss_for_batch, ts.clip_by_global_norm)
+
+        def forward(*a, **kw):
+            self.part = "forward"
+            out = self.orig[0](*a, **kw)
+            self.part = "backward"
+            return out
+
+        def update(*a, **kw):
+            self.part = "update"
+            self.grad_peak = torch.cuda.max_memory_allocated()
+            return self.orig[1](*a, **kw)
+
+        ts.loss_for_batch, ts.clip_by_global_norm = forward, update
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.loss_for_batch, self.mod.clip_by_global_norm = self.orig
+
+
+def remat_witness(dev, arch, depth, lr) -> dict:
+    """One AdamW step of ``arch`` (rate ``lr``, full width, bf16, ``depth``
+    layers) under "none" and one under "full" from the same state and
+    batch, counters set to 0 just before each and read just
+    after: the loss bit-equal, grad_norm within REMAT_GNORM_RTOL, every
+    parameter within one bf16 rounding step, and the memory the forward
+    and backward add to what the step starts with (the second step starts
+    with the first one's parameters kept) under "full" strictly below the
+    one under "none" (the whole step's beside them: AdamW's update may set
+    both).  Returns the launches of both steps."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainState, build_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, _, params = llm_model(arch, dev, depth=depth)
+    b, seq = LLM_TRAIN[arch]
+    batch = llm_batch(cfg, np.random.default_rng(4), b, seq, structure=1.0)
+    opt = adamw(lr, moment_dtype=getattr(torch, TRAIN_MOMENTS[arch]))
+    state = TrainState(params, opt.init(params))
+    del params
+    got, total = {}, {}
+    for remat in ("none", "full"):
+        c = cfg.replace(remat=remat)
+        step = build_train_step(build_model(c), c, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        with step_parts() as parts:
+            new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts = path_counts()
+        got[remat] = (new.params, metrics["loss"].item(),
+                      metrics["grad_norm"].item(),
+                      (parts.grad_peak - base) / 2**30,
+                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+        del new
+        require(counts == step_launches(c), f"{arch} witness under {remat} "
+                f"launched {counts}, expected {step_launches(c)}")
+        total = add_counts(total, counts)
+    (p_none, l_none, g_none, a_none, m_none), \
+        (p_full, l_full, g_full, a_full, m_full) = got["none"], got["full"]
+    worst, differ = 0.0, 0
+    for a, r in zip(tree_leaves(p_full), tree_leaves(p_none), strict=True):
+        differ += not torch.equal(a, r)
+        a, r = a.to(torch.float32), r.to(torch.float32)
+        lim = torch.maximum(a.abs(), r.abs()) * 2.0 ** -8
+        worst = max(worst, ((a - r).abs() / lim.clamp_min(1e-30)).max().item())
+    gap = abs(g_full - g_none) / max(abs(g_none), 1e-30)
+    print(f"[train] {arch} remat witness ({cfg.n_layers} layers, batch {b} x"
+          f" {seq}): loss {l_full!r} (full) vs {l_none!r} (none); grad_norm "
+          f"{g_full!r} vs {g_none!r} (relative gap {gap:.3e}, limit "
+          f"{REMAT_GNORM_RTOL}); parameters: {differ} of "
+          f"{len(tree_leaves(p_none))} leaves not bit-equal, worst |diff| / "
+          f"(2^-8 x value) {worst:.3f}; memory added to the step's start "
+          f"at the peak of the forward and backward {a_full:.4f} GiB (full)"
+          f" vs {a_none:.4f} GiB (none), of the step {m_full:.4f} vs "
+          f"{m_none:.4f} GiB")
+    require(l_full == l_none, f"{arch}: remat changed the loss")
+    require(gap <= REMAT_GNORM_RTOL, f"{arch}: remat moved grad_norm by "
+                                     f"{gap:.3e}")
+    require(worst <= 1.0, f"{arch}: remat moved a parameter by {worst:.3f} "
+                          "x 2^-8 of its value")
+    require(a_full < a_none, f"{arch}: the forward and backward added "
+                             f"{a_full:.4f} GiB under remat, {a_none:.4f} "
+                             "without")
+    return total
 
 
 def anchored_step(dev, init, state, batch):
@@ -4831,18 +5049,47 @@ def phase_train(dev) -> tuple[dict, dict]:
     import torch
 
     t0 = time.perf_counter()
-    counts, init, state, batch = train_steps(dev, "mamba2-370m")
-    counts = add_counts(counts, anchored_step(dev, init, state, batch))
-    del init, state, batch
-    torch.cuda.empty_cache()
-    more, *_ = train_steps(dev, "gemma-2b")
-    counts = add_counts(counts, more)
-    torch.cuda.empty_cache()
-    fed = federated_llm(dev)
-    torch.cuda.empty_cache()
+    with expandable_segments():
+        counts, init, state, batch = train_steps(dev, "mamba2-370m",
+                                                 keep_init=True)
+        counts = add_counts(counts, anchored_step(dev, init, state, batch))
+        del init, state, batch
+        torch.cuda.empty_cache()
+        more = train_steps(dev, "gemma-2b")[0]
+        counts = add_counts(counts, more)
+        torch.cuda.empty_cache()
+        fed = federated_llm(dev)
+        torch.cuda.empty_cache()
     print(f"[train] phase wall {time.perf_counter() - t0:.1f} s; card: "
           f"{card_line()}")
     return counts, fed
+
+
+def phase_train_families(dev) -> tuple[dict, dict]:
+    """Phase 14b: the families of REMAT_TRAIN at full width under remat
+    "full", each at its depth cut, and each family's remat witness.
+    Returns the launches of the "train_remat" path (the counted steps) and
+    of the "remat_witness" path."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    counts, witness = {}, {}
+    with expandable_segments():
+        for arch, (depth, witness_depth, lr) in REMAT_TRAIN.items():
+            witness = add_counts(witness, remat_witness(dev, arch,
+                                                        witness_depth, lr))
+            gc.collect()
+            torch.cuda.empty_cache()
+            more = train_steps(dev, arch, depth=depth, remat="full",
+                               lr=lr)[0]
+            counts = add_counts(counts, more)
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"[train] families phase wall {time.perf_counter() - t0:.1f} s; "
+          f"card: {card_line()}")
+    return counts, witness
 
 
 # ----------------------------------------------------------------- phase 15
@@ -5816,6 +6063,9 @@ def main() -> int:
         mark("example")
         counts["train"], counts["fed_llm"] = phase_train(dev)
         mark("train")
+        counts["train_remat"], counts["remat_witness"] = \
+            phase_train_families(dev)
+        mark("train families")
         counts["distribution"], counts["launch"] = phase_distribution(dev)
         mark("distribution")
         counts["quickstart"], quick, quick_tcp = phase_quickstart(dev)

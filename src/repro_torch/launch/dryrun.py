@@ -159,9 +159,10 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             mla_absorb: bool = True, donate: bool = True,
             extra_rules: dict | None = None, n_microbatches: int | None = None,
             verbose: bool = True) -> dict:
-    """``remat`` is recorded and feeds the analytic model; the eager step
-    keeps its activations either way.  ``donate`` keeps the reference's
-    signature: an eager step has no buffers to donate."""
+    """``remat`` is recorded, feeds the analytic model and is the train
+    step's (each scan repetition's forward runs again in the backward, its
+    collectives with it).  ``donate`` keeps the reference's signature: an
+    eager step has no buffers to donate."""
     shape = INPUT_SHAPES[shape_name]
     cfg = get_config(arch)
     ok, reason = shape_is_applicable(cfg, shape)

@@ -14,11 +14,26 @@ leaves are stacked over a leading layer axis (``segments/seg0/b0/...``),
 an "unroll" segment's are per block (``segments/seg1/b0/...``), so JAX
 parameters load leaf for leaf through ``utils.tree.params_from_numpy``;
 the port walks a stacked axis in a Python loop.
+
+``cfg.remat`` is the reference's: each repetition of a "scan" segment
+(the whole group of block kinds, carrying ``h`` and ``moe_loss``) runs
+under ``torch.utils.checkpoint`` when a gradient is being taken ("full":
+only the repetition's inputs are kept and its forward runs again in the
+backward; "dots_saveable": the outputs of ``DOTS`` are kept as well and
+everything else is recomputed).  "unroll" segments and the MTP block are
+never rematerialised, as in the reference; "none", or no gradient being
+taken (scoring, decode), walks the layers as they are.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (
@@ -59,10 +74,37 @@ def _layers(mode: str, seg, repeat: int):
     return [seg]
 
 
+# "dots_saveable": the ops whose outputs a rematerialised repetition keeps,
+# the matmuls that ``torch.einsum`` and ``torch.matmul`` lower to (the
+# reference's policy keeps every ``dot_general``).  Everything else is
+# recomputed, the ``local_attn`` and ``ssd_chunk`` kernels included: the
+# reference's dots would keep their scores, which the kernels never
+# materialise.
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+REMAT = ("none", "full", "dots_saveable")
+
+
+def _remat(kind: str):
+    """The wrapper that runs one repetition of a "scan" segment under
+    ``kind``: ``None`` for "none"."""
+    if kind not in REMAT:
+        raise ValueError(f"remat {kind!r}; known: {REMAT}")
+    if kind == "none":
+        return None
+    kw = {}
+    if kind == "dots_saveable":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(DOTS))
+    return functools.partial(checkpoint, use_reentrant=False, **kw)
+
+
 class LanguageModel:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.layout = stack_layout(cfg)
+        self.remat = _remat(cfg.remat)
 
     # ------------------------------------------------------------------ schema
     def schema(self) -> dict:
@@ -145,14 +187,22 @@ class LanguageModel:
         positions = torch.arange(h.shape[1], device=h.device)
         moe_loss = torch.zeros((), dtype=torch.float32, device=h.device)
 
+        def group(layer_p, h, moe_loss, kinds):
+            for i, kind in enumerate(kinds):
+                h, _, a = block_apply(
+                    cfg, kind, layer_p[f"b{i}"], h, positions=positions,
+                    rules=rules, window_override=window_override)
+                moe_loss = moe_loss + a
+            return h, moe_loss
+
         for si, (mode, kinds, repeat) in enumerate(self.layout):
+            run = group
+            if (mode == "scan" and self.remat is not None
+                    and torch.is_grad_enabled()):
+                run = functools.partial(self.remat, group)
             for layer_p in _layers(mode, params["segments"][f"seg{si}"],
                                    repeat):
-                for i, kind in enumerate(kinds):
-                    h, _, a = block_apply(
-                        cfg, kind, layer_p[f"b{i}"], h, positions=positions,
-                        rules=rules, window_override=window_override)
-                    moe_loss = moe_loss + a
+                h, moe_loss = run(layer_p, h, moe_loss, kinds)
 
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         logits = self._head(params, h, rules)

@@ -28,6 +28,7 @@ from repro_torch.kernels.local_attn.ops import local_flash_attention
 from repro_torch.kernels.local_attn.ref import local_attention_bwd_ref
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_bwd_ref
+from repro_torch.models.blocks import ATTN_KINDS, stack_layout
 from repro_torch.models.model import build_model
 from repro_torch.training.losses import loss_for_batch
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -210,3 +211,64 @@ def test_llm_gradients_on_card_match_cpu(arch, cuda):
     for g, w in zip(got, want, strict=True):
         err = (g.cpu() - w).abs().max().item()
         assert err <= GRAD_RTOL * max(1.0, w.abs().max().item()), err
+
+
+@pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_attention_recomputed_in_the_backward(D, dtype, cuda):
+    """``torch.utils.checkpoint`` runs the forward kernel again on
+    autograd's backward thread (the tensor-core route encodes its tensor
+    maps there, the split-tf32 route sets its shared memory there): the
+    gradients equal the unrematerialised ones bit for bit, with two
+    forward launches and one backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    q, k, v, dout = attn_case(torch.Generator(device=cuda).manual_seed(D),
+                              1, 4, 1, 300, D, dtype)
+    kw = dict(causal=True, window=0, scale=D ** -0.5)
+    _, want = attn_grads(q, k, v, dout, **kw)
+    live = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (attn_ops.launches, attn_ops.launches_bwd)
+    out = checkpoint(lambda *t: local_flash_attention(*t, **kw), *live,
+                     use_reentrant=False)
+    got = torch.autograd.grad(out, live, dout)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0],
+            attn_ops.launches_bwd - before[1]) == (3, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("arch,dtype", [("gemma-2b", "bfloat16"),
+                                        ("recurrentgemma-9b", "bfloat16"),
+                                        ("mamba2-370m", "float32")])
+def test_llm_remat_on_card_equals_none(arch, dtype, cuda):
+    """A reduced model's loss gradient on the card under remat "full" and
+    "dots_saveable" equals the one under "none" bit for bit, with each
+    scanned block's forward kernel launched twice."""
+    cfg = reduced_for_smoke(get_config(arch)).replace(dtype=dtype)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=5)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), cuda)
+    batch = lm_batch(np.random.default_rng(0), 2, 100, cfg.vocab_size)
+    ops = ssd_ops if arch == "mamba2-370m" else attn_ops
+    got = {}
+    for remat in ("none", "full", "dots_saveable"):
+        c = cfg.replace(remat=remat)
+        live = tree_map(lambda x: x.detach().requires_grad_(), params)
+        reset_launch_counts()
+        loss, _ = loss_for_batch(build_model(c), c, live, batch)
+        got[remat] = (loss.detach(), torch.autograd.grad(loss,
+                                                         tree_leaves(live)))
+        torch.cuda.synchronize()
+        blocks = sum(repeat * sum(k in ATTN_KINDS + ("ssm",) for k in kinds)
+                     for _mode, kinds, repeat in stack_layout(cfg))
+        again = 0 if remat == "none" else sum(
+            repeat * sum(k in ATTN_KINDS + ("ssm",) for k in kinds)
+            for mode, kinds, repeat in stack_layout(cfg) if mode == "scan")
+        assert (ops.launches, ops.launches_bwd) == (2 * blocks + again,
+                                                    blocks), remat
+    for remat in ("full", "dots_saveable"):
+        assert torch.equal(got[remat][0], got["none"][0])
+        assert all(torch.equal(a, b) for a, b in zip(
+            got[remat][1], got["none"][1], strict=True)), remat
