@@ -38,6 +38,17 @@ BF16_TOL = 2e-2
 BLOCK_N = {64: 64, 128: 64, 256: 32}     # TbShape<D>::BN: streamed tile rows
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def allowed(S, T, causal, window):
     s = torch.arange(S)[:, None]
     t = torch.arange(T)[None, :]

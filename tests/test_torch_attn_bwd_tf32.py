@@ -66,6 +66,17 @@ SCHEMES = {6: ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0)),
            3: ((1, 0), (0, 1), (0, 0))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tf32(x):
     """cvt.rna.tf32.f32: the nearest value with a 10-bit mantissa, ties
     away from zero."""

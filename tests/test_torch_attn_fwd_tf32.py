@@ -66,6 +66,17 @@ SPLIT = 2          # LF_SPLIT: warps a row group
 STAGES = 2         # LF_STAGES: the K / V ring
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def step_products(a, b, products=ops.TF32_PRODUCTS):
     """a @ b's k-steps of 8 (zero-padded) as the kernel forms them, each
     into a fresh f32 accumulator: (..., steps, M, N), to be added to a

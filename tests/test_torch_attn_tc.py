@@ -38,6 +38,17 @@ BLOCK_K = {64: 64, 128: 64, 256: 32}     # TcShape<D>::BN
 F64_FACTOR = 2.0   # the route's distance to f64 over the plain version's
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def emulate_tc(q, k, v, *, causal: bool, window: int, scale: float):
     """What the tensor-core kernel computes, rounding where it rounds."""
     B, H, S, D = q.shape

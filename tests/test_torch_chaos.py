@@ -11,8 +11,10 @@ topology (``ROADMAP.md`` §3 item 13).
 """
 
 import dataclasses
+import signal
 
 import pytest
+import torch
 
 from repro.core.transport import LoopbackShardServers as JaxServers
 from repro.scenario import regional_outage as jax_regional_outage
@@ -24,6 +26,32 @@ from test_torch_scenarios import PROCESS_KEYS, assert_reports_equal
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 CHAOS = dict(n_clients=5_000, n_ticks=16, n_clusters=8, seed=11)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def deadline():
+    """Fail a test that starts server processes after 240 s instead of
+    letting it hang the run (each wait inside has its own timeout too)."""
+    def expire(signum, frame):
+        raise TimeoutError("the test's 240 s deadline passed")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(240)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def chaos_inject(store, rep, *, kill: bool):
@@ -47,7 +75,8 @@ def chaos_run(run, scen, servers, topology, **kw):
 
 
 @pytest.mark.parametrize("topology", ["sharded", "process", "tcp"])
-def test_chaos_outage_migration_worker_kill(topology, monkeypatch):
+def test_chaos_outage_migration_worker_kill(topology, monkeypatch,
+                                            deadline):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     rep = chaos_run(
         run_scenario, regional_outage(**CHAOS),
@@ -68,7 +97,8 @@ def test_chaos_outage_migration_worker_kill(topology, monkeypatch):
         k: v for k, v in ref.stats.items() if k not in PROCESS_KEYS}))
 
 
-def test_a_worker_takes_its_seed_from_its_queue_at_any_width(monkeypatch):
+def test_a_worker_takes_its_seed_from_its_queue_at_any_width(monkeypatch,
+                                                              deadline):
     """A spawned worker's seed blob goes by its command queue, not by the
     spawn's arguments, before and after a respawn: the child unpickles its
     arguments while it imports torch, so a blob wider than the pipe's

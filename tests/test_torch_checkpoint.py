@@ -32,6 +32,17 @@ DTYPES = ("float32", "float16", "bfloat16", "int8", "int32", "int64",
 SHAPES = ((), (0,), (3, 0), (7,), (2, 3, 4))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def boundary_values():
     """Scalars and containers at every msgpack width boundary."""
     ints = [0, 1, 0x7F, 0x80, 0xFF, 0x100, 0xFFFF, 0x10000, 0xFFFFFFFF,

@@ -13,6 +13,17 @@ import repro_torch.core as core
 from repro_torch.utils.tree import params_from_numpy, tree_leaves
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def nested(rng, scale=1.0):
     return {"w": (scale * rng.standard_normal((4, 3))).astype(np.float32),
             "b": {"v": (scale * rng.standard_normal(5)).astype(np.float32),

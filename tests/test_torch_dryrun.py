@@ -55,6 +55,17 @@ _DTYPES = {torch.bfloat16: jnp.bfloat16, torch.int32: jnp.int32,
            torch.bool: jnp.bool_}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_input_specs_cover_all_families(shape):
     for arch in ALL_ARCHS:

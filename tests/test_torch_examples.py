@@ -11,6 +11,7 @@ import pathlib
 import sys
 
 import pytest
+import torch
 
 import repro.training.fed_solar as jax_fed_solar
 import repro_torch.training.fed_solar as torch_fed_solar
@@ -27,6 +28,17 @@ REPORT = {"table2": {"FederatedGlobal": ROW},
                       "per_client": {"site-0": {"epsilon": 73.0,
                                                 "delta": 1e-5,
                                                 "steps": 6}}}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def load(name):

@@ -70,6 +70,17 @@ ABSORB_ATOL = 1e-4
 B, S, N_PATCH = 2, 12, 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def load_pair(arch, edit=lambda cfg: cfg, seed=0):
     """(JAX model, JAX params, port model, port params) of ``arch`` at
     smoke size, ``edit`` applied to both packages' configs.  One numpy tree

@@ -41,6 +41,17 @@ from repro_torch.training.fed_solar import make_solar_fns, make_train_fn
 from repro_torch.utils.tree import params_from_numpy, tree_leaves, tree_map
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def np_tree(rng):
     return {"w": rng.standard_normal((6, 5)).astype(np.float32),
             "b": {"v": rng.standard_normal(7).astype(np.float32)}}

@@ -33,6 +33,17 @@ GLOBAL = tstore.GLOBAL_KEY
 NOFAST = AggregationConfig(sequential_fast_path=False)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def np_tree(rng, n=300):
     # sorted keys: the order JAX's tree functions give a folded tree
     return {"b": rng.standard_normal(16).astype(np.float32),

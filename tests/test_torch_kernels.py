@@ -53,6 +53,17 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 from repro_torch.models.ssm import ssd_chunked
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t32(a):
     return torch.from_numpy(np.asarray(a, np.float32))
 

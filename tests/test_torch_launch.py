@@ -24,6 +24,17 @@ from repro_torch.training.fed_solar import run_fedccl_solar
 FLEET = dict(n_sites=3, n_days=9, rounds=1, seed=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m"])
 def test_train_launcher_runs_on_the_cpu(arch):
     argv = ["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "16",

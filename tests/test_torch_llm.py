@@ -40,6 +40,17 @@ LOGITS_ATOL = 5e-5
 DECODE_ATOL = 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
     """(arch, JAX model, JAX params, port model, port params) at smoke size."""

@@ -60,6 +60,17 @@ SEQ_CASES = [(b, i, h, t) for b in (1, 3, 8) for i in (9, 10)
              for h in (4, 16, 32) for t in (1, 5, 37)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t32(a):
     return torch.from_numpy(np.array(a, np.float32))
 

@@ -36,6 +36,17 @@ PKGS = [pytest.param((metrics, record, export), id="port"),
 
 
 # ----------------------------------------------------------------- metrics
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_bucketing_by_bit_length_equals_reference():
     vals = (0, 1, 2, 3, 1000, -5, 1 << 40, (1 << 70))
     a, b = metrics.LogHistogram(), jmetrics.LogHistogram()

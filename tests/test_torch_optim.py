@@ -51,6 +51,17 @@ PORT_ARCHS = ["deepseek-7b", "gemma-2b", "glm4-9b", "granite-8b",
               "mamba2-370m"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def np_tree(rng, dtype=np.float32):
     return {"w": rng.standard_normal((6, 5)).astype(dtype),
             "b": {"v": rng.standard_normal(7).astype(dtype),

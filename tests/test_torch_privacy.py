@@ -90,6 +90,17 @@ TABLE_PP = 1e-3
 NOISY_PP = 0.5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t32(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 

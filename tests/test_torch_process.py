@@ -67,6 +67,17 @@ GLOBAL = tstore.GLOBAL_KEY
 SPACE = dict(eps=100.0, min_samples=2, metric="haversine")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def deadline():
     """Fail a test that spawns processes after 150 s instead of letting

@@ -17,6 +17,7 @@ import argparse
 import importlib.util
 import json
 import pathlib
+import signal
 import sys
 
 import jax
@@ -35,6 +36,32 @@ TOPOLOGIES = ("single", "sharded", "process", "tcp")
 PARAMS_RTOL = 1e-4
 DETERMINISTIC_HISTS = ("staleness_at_fold", "coalesce_batch", "queue_depth",
                        "submit_batch")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def deadline():
+    """Fail a test that starts server processes after 240 s instead of
+    letting it hang the run (each wait inside has its own timeout too)."""
+    def expire(signum, frame):
+        raise TimeoutError("the test's 240 s deadline passed")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(240)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def load(name):
@@ -135,7 +162,8 @@ def model_gap(got, want):
 
 @pytest.mark.parametrize("topology", TOPOLOGIES)
 def test_quickstart_matches_the_reference_example(topology, tmp_path,
-                                                  monkeypatch, capsys):
+                                                  monkeypatch, capsys,
+                                                  deadline):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     ref = jax_run(topology, tmp_path, monkeypatch, capsys)
     init = params_from_numpy(jax.tree.map(np.asarray, ref["init_params"]),

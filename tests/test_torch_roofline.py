@@ -25,6 +25,17 @@ MESHES = {"256": (256, {"data": 16, "model": 16}),
           "512": (512, {"pod": 2, "data": 16, "model": 16})}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_analytic_model_equals_jax(arch, mesh):

@@ -13,8 +13,11 @@ workers and loopback CPU shard servers and are held against the
 reference's thread-sharded run at the same shard count.
 """
 
+import signal
+
 import numpy as np
 import pytest
+import torch
 
 from repro.scenario import PRESETS as JPRESETS
 from repro.scenario import run_scenario as jrun
@@ -36,6 +39,32 @@ DETERMINISTIC_HISTS = ("staleness_at_fold", "coalesce_batch", "queue_depth",
 PROCESS_KEYS = ("processes", "transport", "respawns", "mirror_syncs",
                 "shard_drain_timeouts", "wire_tx_bytes", "wire_rx_bytes",
                 "replicas", "replica_pushes", "replica_drops")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def deadline():
+    """Fail a test that starts server processes after 240 s instead of
+    letting it hang the run (each wait inside has its own timeout too)."""
+    def expire(signum, frame):
+        raise TimeoutError("the test's 240 s deadline passed")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(240)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def assert_reports_equal(port, ref, *, same_topology=True):
@@ -113,7 +142,7 @@ def test_drift_ewc_retains_the_season_anchor():
     assert d_ewc < d_base
 
 
-def test_process_topology_equals_reference(monkeypatch):
+def test_process_topology_equals_reference(monkeypatch, deadline):
     """Spawned CPU workers fold the run the reference folds on threads."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     scen = dict(n_clusters=4, seed=5)
@@ -127,7 +156,7 @@ def test_process_topology_equals_reference(monkeypatch):
     assert port.metrics["histograms"]["drain_fold_ns_host"]["count"] > 0
 
 
-def test_tcp_topology_equals_reference(monkeypatch):
+def test_tcp_topology_equals_reference(monkeypatch, deadline):
     """Two loopback port servers on the CPU fold the reference's run."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     scen = dict(n_clusters=4, seed=5)

@@ -56,6 +56,17 @@ from repro_torch.training.losses import solar_loss
 from repro_torch.utils.tree import params_from_numpy, tree_leaves
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t32(a):
     return torch.from_numpy(np.array(a, np.float32))
 

@@ -56,6 +56,17 @@ RING_KEYS = [f"cluster:{i}" for i in range(1000)] + \
     [f"loc:{i}" for i in range(500)] + [f"ori:{i}" for i in range(500)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def np_tree(rng):
     return {"a": rng.standard_normal((4, 3)).astype(np.float32),
             "b": rng.standard_normal(5).astype(np.float32)}

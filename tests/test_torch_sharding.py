@@ -21,6 +21,7 @@ that starts a process group destroys it, also when it fails.
 
 import os
 import socket
+import time
 import types
 
 import jax
@@ -67,6 +68,17 @@ RULE_SETS = {
     "decode_kv_seq": ((16, 16), ("data", "model"), {"kv_seq": "data"}, False),
     "1x1": ((1, 1), ("data", "model"), {}, False),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def port_rules(name) -> Rules:
@@ -509,8 +521,17 @@ def test_sharded_kernels_equal_the_unsharded_on_two_ranks(tmp_path):
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        mp.start_processes(_two_rank_worker, args=(_free_port(), str(tmp_path)),
-                           nprocs=2, join=True, start_method="spawn")
+        ranks = mp.start_processes(
+            _two_rank_worker, args=(_free_port(), str(tmp_path)), nprocs=2,
+            join=False, start_method="spawn")
+        # a deadline of the test's own: ranks that hang are killed and the
+        # test fails, instead of the join holding the run
+        deadline = time.monotonic() + 150.0
+        while not ranks.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ranks.processes:
+                    proc.kill()
+                pytest.fail("the two ranks missed the test's 150 s deadline")
     finally:
         for k, v in old.items():
             if v is None:

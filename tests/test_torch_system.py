@@ -43,6 +43,17 @@ PORT = REPO / "src" / "repro_torch"
 TABLE_PP = 1e-3          # Table II / §IV.E agreement, percentage points
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_solar_run_matches_jax_end_to_end():
     ref, got, gap = solar_parity(**SMALL)
     assert got["clusters"] == ref["clusters"]

@@ -59,6 +59,17 @@ NOFAST = agg.AggregationConfig(sequential_fast_path=False)
 SPACE = dict(eps=100.0, min_samples=2, metric="haversine")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _hdr(version: int, kind: int, length: int, trace: int = 0) -> bytes:
     """The spec's header by hand, as ``tests/test_wire_protocol.py``
     writes it."""

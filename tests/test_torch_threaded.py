@@ -63,6 +63,17 @@ N_CLIENTS = 6
 SAMPLES_A_ROUND = 2 * (100 + 110 + 120)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def threaded_fed(seed=5, **kw):
     fed = FedCCL(FedCCLConfig(spaces=(ClusterSpaceConfig("loc", **SPACE),),
                               ewc_lambda=0.05, seed=seed, runtime="threaded",

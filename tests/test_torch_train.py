@@ -80,6 +80,17 @@ B, S, N_PATCH = 2, 24, 8
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's torch work, module fixtures
+    included: the suite's xdist workers share the cores, and torch's
+    default pool in each would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
     """(JAX model, cfg, params; port model, cfg, params) at smoke size, the
