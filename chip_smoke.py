@@ -14,10 +14,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
              local_attn at gemma-2b, B 2, S 2048 in bf16 (the tensor-core
              route, ``ops.launches_tc``) and f32 (split tf32,
              ``ops.launches_tf32``), at RecurrentGemma's window 2048, S
-             4096, and at launch.train's shape in f32 (LAUNCH_ATTN: B 2,
-             H 4, KV 1, S 64, D 64), each also against the same function
-             in f64 (ATTN_F64_FACTOR), timed on both routes at gemma-2b's
-             shape beside SDPA in the same dtype and at launch.train's);
+             4096, at glm4-9b's training shape in bf16 (ATTN_D128: B 2, H
+             32, KV 2, S 2048, D 128) and at launch.train's shape in f32
+             (LAUNCH_ATTN: B 2, H 4, KV 1, S 64, D 64), each also against
+             the same function in f64 (ATTN_F64_FACTOR), timed on both
+             routes at gemma-2b's shape beside SDPA in the same dtype, at
+             glm4-9b's and at launch.train's);
              the LSTM step's
              autograd.Function gradients against autograd of the plain
              cell; the whole-sequence LSTM kernels (forward and reverse
@@ -51,15 +53,17 @@ Phases, each fatal on failure (non-zero exit, no final line):
              backward), and the sequence's serial floor; the backward
              kernels of ssd_chunk (mamba2-370m's training shape b 2, S
              2048 and the padded S 2000, and SSD_SHAPES) and of local_attn
-             (gemma-2b's training shape in bf16 and f32, launch.train's
-             in f32, the window 2048 at S 4096, head dims 80 and 192;
+             (gemma-2b's training shape in bf16 and f32, glm4-9b's in
+             bf16, launch.train's in f32, the window 2048 at S 4096, head
+             dims 80 and 192;
              bf16 at D 64-256 on the tensor-core route,
              ``ops.launches_bwd_tc``, every other call on the split-tf32
              route, ``ops.launches_bwd_tf32``), each against its
              plain VJP and the VJP in f64 (BWD_F64_FACTOR) and twice for
              the bits, local_attn's timed at gemma-2b's shape on both
-             routes (bf16 wgmma, f32 split tf32) and at launch.train's in
-             f32, beside SDPA's forward + backward in the same dtype.
+             routes (bf16 wgmma, f32 split tf32), at glm4-9b's in bf16 and
+             at launch.train's in f32, beside SDPA's forward + backward in
+             the same dtype.
 3. main    — ``run_fedccl_solar`` at the full SolarLSTMConfig width
              (hidden 128) on CUDA with the launch counters reset before and
              read after: every kernel of the path must have launched, the
@@ -166,15 +170,17 @@ Phases, each fatal on failure (non-zero exit, no final line):
              (2 x 2048), deepseek-moe-16b (2 x 2048), recurrentgemma-9b
              (2 x 4096, so its 2048 window binds), hubert-xlarge (2 x
              4096 frames, bidirectional), deepseek-v3-671b at depth 4 (its
-             3 dense layers and one MoE layer, MTP included, 2 x 2048) and
+             3 dense layers and one MoE layer, MTP included, 2 x 2048),
              internvl2-76b at depth 8 of 80 (2 x (256 patches + 2048
-             text)): exactly one ``ssd_chunk`` launch a layer / one
-             ``local_attn`` launch an attention-bearing block (48 / 18, 28,
-             12, 48, 4 + 1, 8), every local_attn launch on its tensor-core
+             text)), and the dense configs at D 128, deepseek-7b, glm4-9b
+             and granite-8b (2 x 2048): exactly one ``ssd_chunk`` launch a
+             layer / one ``local_attn`` launch an attention-bearing block
+             (48 / 18, 28, 12, 48, 4 + 1, 8, 30, 40, 36), every local_attn
+             launch on its tensor-core
              route (``ops.launches_tc``), each cross entropy finite and
              within 2 of ln V, wall time, peak memory and (``profile``)
              the device's kernels by name; then greedy serving at full
-             width in the configs' bf16 of the five decoders (``serve``;
+             width in the configs' bf16 of the eight decoders (``serve``;
              deepseek-v3-671b at depth 4): ``generate`` and
              ``generate_ragged`` (examples/serve_batched.py's mix), no
              kernel launched (ragged equality held in f32 in phase 12).
@@ -224,14 +230,17 @@ Phases, each fatal on failure (non-zero exit, no final line):
              eval loss falls, FED_LLM_UPDATES updates, fold launches equal
              to what the recorded folds imply, the global model moved.
              Then ("train families", its own ``[time]`` line) four more
-             families at full width in bf16 under ``remat="full"``,
+             families and the three dense configs at D 128 (deepseek-7b,
+             glm4-9b, granite-8b) at full width in bf16 under
+             ``remat="full"``,
              AdamW with bf16 moments, at their scoring shapes and their
              depth cuts (REMAT_TRAIN; the allocator's segments
              expandable): 3 steps each, exactly ``step_launches``' counts
              (two tensor-core local_attn forwards a scanned attention
              block, one an unrolled block, one backward a block), the loss
              falling, the peak leaving TRAIN_SPARE_GIB of the card; and a
-             remat witness a family: a step under "none" and one under
+             remat witness a family (of the three dense configs, glm4-9b's
+             alone): a step under "none" and one under
              "full" from one state, the loss bit-equal, grad_norm within
              REMAT_GNORM_RTOL, every parameter within one bf16 rounding
              step, and less memory added by the forward and backward
@@ -432,13 +441,16 @@ class LLMRow:
 # seed; every family of the repo: SSM, dense, MoE, the RG-LRU hybrid,
 # audio, MLA with MTP, VLM.  One row an architecture:
 # - score: recurrentgemma's S 4096 so that its 2048 window binds, hubert's
-#   frames, internvl's 256 patches + 2048 text tokens;
+#   frames, internvl's 256 patches + 2048 text tokens; the three dense
+#   configs at D 128 (deepseek-7b MHA 32 / 32, glm4-9b GQA 32 / 2 with
+#   biased q/k/v, granite-8b GQA 32 / 8 at RoPE theta 1e7) at 2 x 2048;
 # - depth: deepseek-v3-671b keeps its 3 dense layers and one MoE layer
 #   (29.4 GiB in bf16), internvl2-76b 8 of its 80 (16.7 GiB); every other
 #   config runs all its layers;
-# - profile: the two full-depth decoders of the MoE and hybrid families
-#   only (the smoke's time, PERF.md §2; mamba2's and gemma-2b's scoring
-#   profiles are in PERF.md §5);
+# - profile: the two full-depth decoders of the MoE and hybrid families,
+#   and glm4-9b, the dense config with both the bias and GQA 16 (the
+#   smoke's time, PERF.md §2; mamba2's and gemma-2b's scoring profiles are
+#   in PERF.md §5);
 # - serve: every decoder, in its config's bf16.  Serving holds ragged
 #   decoding to independent decoding token for token at f32 weights
 #   (ragged); in bf16 the batch size changes cuBLAS's reduction order and
@@ -462,9 +474,14 @@ class LLMRow:
 #   MTP), recurrentgemma 3 (one whole group); mamba2's S 520 is 3 SSD
 #   chunks;
 # - narrow: the CUDA-against-CPU case runs at full width where the CPU
-#   child can carry it; these three keep their heads, head dims, MLA
-#   ranks, window and vocab but narrow d_model, d_ff and the experts (the
-#   CPU child's time and memory: deepseek-v3 at depth 4 is 63 GB in f32).
+#   child can carry it; six keep their heads, head dims, MLA ranks,
+#   window, vocab, qkv_bias and RoPE theta but narrow d_model, d_ff and
+#   the experts (the CPU child's time and memory: deepseek-v3 at depth 4
+#   is 63 GB in f32; the three dense configs at depth 2 are 0.84-1.65 B
+#   parameters, embeddings included, which this process would hold as
+#   drawn cases beside the child's gradients, ~30 GB more in f32, and the
+#   child would take an estimated ~100 s more; narrowed to d_model 1024
+#   and a quarter of d_ff, 0.14-0.35 B).
 LLM = {
     "mamba2-370m": LLMRow(score=(4, 2048), agree=(2, 520), kernel="ssd_chunk",
                           serve=True, decode=(4, 64), ragged=True),
@@ -486,6 +503,15 @@ LLM = {
     "internvl2-76b": LLMRow(score=(2, 256 + 2048), agree=(2, 32 + 128),
                             depth=8, decode=(4, 64), patches=32,
                             narrow=dict(d_model=2048, d_ff=7168)),
+    "deepseek-7b": LLMRow(score=(2, 2048), agree=(2, 256), serve=True,
+                          decode=(4, 64), ragged=True,
+                          narrow=dict(d_model=1024, d_ff=2752)),
+    "glm4-9b": LLMRow(score=(2, 2048), agree=(2, 256), profile=True,
+                      serve=True, decode=(4, 64), ragged=True,
+                      narrow=dict(d_model=1024, d_ff=3424)),
+    "granite-8b": LLMRow(score=(2, 2048), agree=(2, 256), serve=True,
+                         decode=(4, 64), ragged=True,
+                         narrow=dict(d_model=1024, d_ff=3584)),
 }
 SERVE_PROMPTS, SERVE_NEW = (4, 12), 16          # examples/serve_batched.py
 RAGGED_LENS = (5, 11, 23)
@@ -526,12 +552,18 @@ BWD_RTOL, BWD_BF16_RTOL, BWD_F64_FACTOR = 1e-4, 2e-2, 2.0
 # D 64) at LAUNCH_TRAIN's batch 2 and seq 64, causal, no window: the f32
 # forward and backward routes at their D=64 instantiation (B, H, KV, S, D)
 LAUNCH_ATTN = (2, 4, 1, 64, 64)
+# glm4-9b's training shape (LLM_TRAIN's batch, its heads): 16 query heads a
+# kv head at D 128 on the tensor-core routes (B, H, KV, S, D), causal, bf16
+ATTN_D128 = (2, 32, 2, 2048, 128)
+ATTN_D128_SHAPE = ("B={}, H={}, KV={}, S={}, D={}, causal, bf16 (glm4-9b's "
+                   "training shape)".format(*ATTN_D128))
 # local_attn's backward: (B, H, KV, S, D, causal, window, dtype): gemma-2b's
 # training shape in bf16 (the path) and f32, launch.train's shape in f32,
 # RecurrentGemma's window 2048 at S 4096 (in bf16 its training's shape on
-# the tensor-core route), and head dims 80 and 192 (zero-padded to 128 and
-# 256)
+# the tensor-core route), head dims 80 and 192 (zero-padded to 128 and
+# 256), and glm4-9b's training shape (ATTN_D128)
 ATTN_BWD_CASES = ((2, 8, 1, 2048, 256, True, 0, "bfloat16"),
+                  (*ATTN_D128, True, 0, "bfloat16"),
                   (2, 8, 1, 2048, 256, True, 0, "float32"),
                   (*LAUNCH_ATTN, True, 0, "float32"),
                   (1, 16, 1, 4096, 256, True, 2048, "float32"),
@@ -546,28 +578,45 @@ ATTN_BWD_CASES = ((2, 8, 1, 2048, 256, True, 0, "bfloat16"),
 # f32 gradients and updates)
 LLM_TRAIN = {"mamba2-370m": (2, 2048), "gemma-2b": (2, 2048),
              "deepseek-moe-16b": (2, 2048), "recurrentgemma-9b": (2, 4096),
-             "hubert-xlarge": (2, 4096), "internvl2-76b": (2, 256 + 2048)}
+             "hubert-xlarge": (2, 4096), "internvl2-76b": (2, 256 + 2048),
+             "deepseek-7b": (2, 2048), "glm4-9b": (2, 2048),
+             "granite-8b": (2, 2048)}
 TRAIN_STEPS, TRAIN_LR = 3, 3e-4
 TRAIN_MOMENTS = {arch: "float32" if arch == "mamba2-370m" else "bfloat16"
                  for arch in LLM_TRAIN}
-# the four families of PR 28 train under remat "full" at the deepest depth
-# whose step leaves TRAIN_SPARE_GIB of the card free, in whole repeated
-# units (train_unit), hubert-xlarge at its full 48, the allocator's
-# segments expandable (tools/train_memory.py measures the depths; AdamW's
-# update holds ~20 bytes a parameter at the step's peak, PERF.md §6):
-# (depth, the remat witness's depth, where a step under "none" fits
-# beside the parameters the witness keeps, AdamW's rate).  The rates: at
+# the MoE, hybrid, audio and VLM families and the three dense configs at
+# D 128 train under remat "full" at the deepest depth whose step leaves
+# TRAIN_SPARE_GIB of the card free, in whole repeated units (train_unit),
+# hubert-xlarge at its full 48, the allocator's segments expandable
+# (tools/train_memory.py measures the depths; AdamW's update holds ~20
+# bytes a parameter at the step's peak, PERF.md §6): (depth, the remat
+# witness's depth, where a step under "none" fits beside the parameters
+# the witness keeps, or None: no witness, AdamW's rate).  remat has no
+# code that depends on the family, so of the three dense configs glm4-9b
+# alone (the bias and GQA 16) runs a witness (the smoke's time).  The
+# rates: at
 # 1e-5 each of the first three families' three losses fell at its depth in
 # the probe (at 3e-4 deepseek-moe's and hubert's rose); internvl2's at
 # 3e-6, the largest of the probe's rates at which they fell: AdamW's first
 # step moves every weight by ~lr, and its q/k/v start at std
 # 1/sqrt(8192 x 64) (the fan-in counts the head axis, as the reference's
-# initializer does), so at 1e-5 its loss rose from 12.72 to 18.86
+# initializer does), so at 1e-5 its loss rose from 12.72 to 18.86.  The
+# three dense configs at d_model 4096: 1e-6, the largest of the probe's
+# rates (3e-4 to 3e-7) at which each one's three losses fell; at 3e-6 the
+# second loss rose or the third did (deepseek-7b 12.28, 16.30, 9.38): a
+# scanned stack's fan-in also counts its layer axis, so glm4-9b's q
+# starts at std 1/sqrt(12 x 4096 x 32) at its depth 12
 REMAT_TRAIN = {"deepseek-moe-16b": (6, 5, 1e-5),
                "recurrentgemma-9b": (6, 3, 1e-5),
-               "hubert-xlarge": (None, None, 1e-5),
-               "internvl2-76b": (1, 1, 3e-6)}
+               "hubert-xlarge": (48, 48, 1e-5),
+               "internvl2-76b": (1, 1, 3e-6),
+               "deepseek-7b": (14, None, 1e-6),
+               "glm4-9b": (12, 11, 1e-6),
+               "granite-8b": (15, None, 1e-6)}
 TRAIN_SPARE_GIB = 4.0
+# configs whose training needs more than one card: deepseek-v3-671b's
+# smallest depth with a MoE layer is 15.8 B parameters (ROADMAP §1 item 6)
+MULTI_CARD_TRAIN = frozenset({"deepseek-v3-671b"})
 # the remat witness: one step under "full" against one under "none" from
 # the same state, grad_norm within REMAT_GNORM_RTOL, every parameter within
 # one bf16 rounding step (relative 2^-8 of the larger value)
@@ -1390,12 +1439,14 @@ def check_ssd(dev, gen):
 def check_local_attn(dev, gen):
     """local_attn's forward kernels at the path's shapes: gemma-2b (B 2, H
     8, KV 1, S 2048, D 256) in bf16 (the tensor-core route) and f32 (split
-    tf32), RecurrentGemma's window 2048 at S 4096 in f32, the padded head
-    dims 80 (f32, bf16) and 192 (bf16) and launch.train's shape in f32,
-    each on its route's counter, within its tolerance of the plain version
-    and at most ATTN_F64_FACTOR times as far from the f64 answer as it;
-    timed at gemma-2b's shape on both routes (the main keys bf16, the
-    ``f32_`` keys the split-tf32 route) and at launch.train's in f32."""
+    tf32), glm4-9b's training shape (ATTN_D128) in bf16, RecurrentGemma's
+    window 2048 at S 4096 in f32, the padded head dims 80 (f32, bf16) and
+    192 (bf16) and launch.train's shape in f32, each on its route's
+    counter, within its tolerance of the plain version and at most
+    ATTN_F64_FACTOR times as far from the f64 answer as it; timed at
+    gemma-2b's shape on both routes (the main keys bf16, the ``f32_`` keys
+    the split-tf32 route), at glm4-9b's (the ``d128_`` keys) and at
+    launch.train's in f32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn import ops
@@ -1439,10 +1490,13 @@ def check_local_attn(dev, gen):
     # gemma-2b (H 8, KV 1) in bf16 and f32; RecurrentGemma's local window;
     # head dims between the instantiations (hubert-xlarge's 80, an encoder;
     # MLA's qk 192), zero-padded to the next one at the caller's scale;
-    # launch.train's shape, the f32 route at D 64 with GQA 4:1
+    # launch.train's shape, the f32 route at D 64 with GQA 4:1; glm4-9b's
+    # training shape, 16 query heads a kv head at D 128
     lb, lh, lkv, ls, ld = LAUNCH_ATTN
+    gb, gh, gkv, gs, gd = ATTN_D128
     for h, kv, seq, dh, window, causal, dtype, nb in (
             (8, 1, s, d, 0, True, torch.bfloat16, b),
+            (gh, gkv, gs, gd, 0, True, torch.bfloat16, gb),
             (8, 1, s, d, 0, True, torch.float32, b),
             (16, 1, 4096, d, 2048, True, torch.float32, 1),
             (16, 16, 1024, 80, 0, False, torch.float32, 1),
@@ -1481,6 +1535,7 @@ def check_local_attn(dev, gen):
                       enable_gqa=True), iters=100, warmup=10),
               "launch_f32_bound_ms": lbms, "launch_f32_bound_by": lby,
               "launch_f32_cuda_core_bound_ms": lcore[0]}
+    d128 = d128_forward(dev, gen)
     q, k, v = qkv(b, 8, 1, s, d, torch.bfloat16)
     # the same inputs as the model hands them over: (b, s, heads, D) views
     views = [t.transpose(1, 2).contiguous().transpose(1, 2)
@@ -1544,8 +1599,54 @@ def check_local_attn(dev, gen):
                                       warmup=2),
             "f32_bound_ms": bms32, "f32_bound_by": by32,
             "f32_cuda_core_bound_ms": core32[0],
-            "f32_products": ops.TF32_PRODUCTS, **launch,
+            "f32_products": ops.TF32_PRODUCTS, **launch, **d128,
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+
+
+def d128_forward(dev, gen) -> dict:
+    """The tensor-core forward at ATTN_D128 (glm4-9b's training shape),
+    timed back to back and by its own device time beside the plain version
+    and SDPA on the same inputs, with its bound; the ``d128_`` keys of
+    ``check_local_attn`` (held against plain and f64 there)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.local_attn import ops
+    from repro_torch.kernels.local_attn.ref import local_attention_ref
+
+    b, h, kv, s, d = ATTN_D128
+    q = torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, kv, s, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=True, window=0, scale=d ** -0.5)
+
+    def kernel():
+        return ops.local_flash_attention(q, k, v, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=kw["scale"], enable_gqa=True)
+    gap = (library().float() - kernel().float()).abs().max().item()
+    require(gap <= 2e-2, f"the D 128 SDPA yardstick computes another "
+                         f"function ({gap})")
+    # as the model hands them over: (b, s, heads, D) views
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    require(torch.equal(ops.local_flash_attention(*views, **kw), kernel()),
+            "local_attn at D 128: strided views give another answer")
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = b * h * s * (s + 1) // 2 * 4 * d
+    bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+    out = {"d128_shape": ATTN_D128_SHAPE,
+           "d128_ms": cuda_ms(kernel, iters=20, warmup=3),
+           "d128_device_ms": device_ms("local_attn", kernel, iters=20),
+           "d128_plain_ms": cuda_ms(lambda: local_attention_ref(q, k, v, **kw),
+                                    iters=10, warmup=2),
+           "d128_library_ms": cuda_ms(library, iters=20, warmup=3),
+           "d128_bound_ms": bms, "d128_bound_by": by,
+           "d128_gflop": flops / 1e9, "d128_gbytes": nbytes / 1e9}
+    print(f"[kernels] local_attn at {out['d128_shape']}: "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'd128_shape'})}")
+    return out
 
 
 def hold_bwd(tag, names, got, again, plain, exact, rtol) -> float:
@@ -1638,13 +1739,15 @@ def check_ssd_bwd(dev, gen):
 def check_local_attn_bwd(dev, gen):
     """local_attn's backward kernels through the autograd Function at
     gemma-2b's training shape (B 2, H 8, KV 1, S 2048, D 256) in bf16 and
-    f32, launch.train's (LAUNCH_ATTN) in f32, RecurrentGemma's window 2048
-    at S 4096 and the padded head dims 80 and 192, against the plain VJP
-    and the f64 VJP, twice for the bits, bf16 at D 64-256 on the
-    tensor-core route, the rest on split tf32; timed at gemma-2b's shape on
-    both routes and at launch.train's in f32, each beside SDPA's forward +
-    backward in its dtype (the main keys bf16, the ``f32_`` keys the
-    split-tf32 route, the ``launch_f32_`` keys launch.train's shape)."""
+    f32, glm4-9b's (ATTN_D128) in bf16, launch.train's (LAUNCH_ATTN) in
+    f32, RecurrentGemma's window 2048 at S 4096 and the padded head dims 80
+    and 192, against the plain VJP and the f64 VJP, twice for the bits,
+    bf16 at D 64-256 on the tensor-core route, the rest on split tf32;
+    timed at gemma-2b's shape on both routes, at
+    launch.train's in f32 and at glm4-9b's in bf16, each beside SDPA's
+    forward + backward in its dtype (the main keys bf16, the ``f32_`` keys
+    the split-tf32 route, the ``launch_f32_`` keys launch.train's shape,
+    the ``d128_`` keys glm4-9b's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attn import ops
@@ -1692,7 +1795,8 @@ def check_local_attn_bwd(dev, gen):
     for dtype, key, (nb, h, kv, seq, d) in (
             (torch.bfloat16, "", (b, 8, 1, s, 256)),
             (torch.float32, "f32_", (b, 8, 1, s, 256)),
-            (torch.float32, "launch_f32_", LAUNCH_ATTN)):
+            (torch.float32, "launch_f32_", LAUNCH_ATTN),
+            (torch.bfloat16, "d128_", ATTN_D128)):
         scale = d ** -0.5
         kw = dict(causal=True, window=0, scale=scale)
         q, dout = (torch.randn(nb, h, seq, d, generator=gen, device=dev)
@@ -1741,8 +1845,9 @@ def check_local_attn_bwd(dev, gen):
             + 4 * lse.numel()
         flops = nb * h * seq * (seq + 1) // 2 * 10 * d
         if dtype == torch.bfloat16:
-            bms, by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
-            gflop, gbytes = flops / 1e9, nbytes / 1e9
+            out[f"{key}bound_ms"], out[f"{key}bound_by"] = bound(
+                nbytes, flops, BF16_TC_FLOP_PER_S)
+            out[f"{key}gflop"], out[f"{key}gbytes"] = flops / 1e9, nbytes / 1e9
         else:
             # the route's products run on the tf32 tensor cores, each as
             # ops.TF32_PRODUCTS partial products; the f32 CUDA cores'
@@ -1755,14 +1860,16 @@ def check_local_attn_bwd(dev, gen):
             out[f"{key}products"] = ops.TF32_PRODUCTS
         del q, k, v, dout, lse
         torch.cuda.empty_cache()
+    print(f"[kernels] local_attn backward at {ATTN_D128_SHAPE}: "
+          + json.dumps({k: v for k, v in out.items()
+                        if k.startswith("d128_")}))
     return {"max_abs_err": err, "f32_max_abs_err": err_tf32,
             "shape": f"B={b}, H=8, KV=1, S={s}, D=256, causal, bf16 "
                      "(f32_ keys: f32)",
             "launch_shape": f"B={lb}, H={lh}, KV={lkv}, S={ls}, D={ld}, "
                             "causal, f32 (launch.train)",
-            **out, "library_is": "SDPA forward + backward",
-            "bound_ms": bms, "bound_by": by,
-            "gflop": gflop, "gbytes": gbytes}
+            "d128_shape": ATTN_D128_SHAPE,
+            **out, "library_is": "SDPA forward + backward"}
 
 
 def check_lstm_step_route(dev) -> dict:
@@ -5066,8 +5173,8 @@ def phase_train(dev) -> tuple[dict, dict]:
 
 
 def phase_train_families(dev) -> tuple[dict, dict]:
-    """Phase 14b: the families of REMAT_TRAIN at full width under remat
-    "full", each at its depth cut, and each family's remat witness.
+    """Phase 14b: the configs of REMAT_TRAIN at full width under remat
+    "full", each at its depth cut, and each remat witness.
     Returns the launches of the "train_remat" path (the counted steps) and
     of the "remat_witness" path."""
     import gc
@@ -5078,10 +5185,11 @@ def phase_train_families(dev) -> tuple[dict, dict]:
     counts, witness = {}, {}
     with expandable_segments():
         for arch, (depth, witness_depth, lr) in REMAT_TRAIN.items():
-            witness = add_counts(witness, remat_witness(dev, arch,
-                                                        witness_depth, lr))
-            gc.collect()
-            torch.cuda.empty_cache()
+            if witness_depth is not None:
+                witness = add_counts(witness, remat_witness(
+                    dev, arch, witness_depth, lr))
+                gc.collect()
+                torch.cuda.empty_cache()
             more = train_steps(dev, arch, depth=depth, remat="full",
                                lr=lr)[0]
             counts = add_counts(counts, more)

@@ -1,22 +1,27 @@
-"""How deep each LLM family trains at full width on one card, by remat.
+"""How deep each LLM config trains at full width on one card, by remat.
 
     python3 tools/train_memory.py [--archs deepseek-moe-16b,...]
                                   [--remats full,none] [--steps 2]
                                   [--start hubert-xlarge=48,...] [--only]
                                   [--lr X] [--fixed-segments]
 
-For each family and each remat, ``chip_smoke.train_steps``' step (full
-width, the config's bf16, AdamW with bf16 moments at ``--lr``, the
-family's scoring batch of ``chip_smoke.LLM_TRAIN``) at growing depths,
-one whole repeated unit at a time (recurrentgemma's (rec, rec, attn)
-group; deepseek-moe keeps its dense first layer), from the unit's smallest depth (or ``--start``'s;
-hubert-xlarge's full 48 by default) up to the config's own depth or the
+The configs of ``chip_smoke.REMAT_TRAIN`` by default: the MoE, hybrid,
+audio and VLM families (deepseek-moe-16b, recurrentgemma-9b,
+hubert-xlarge, internvl2-76b) and the dense configs at D 128
+(deepseek-7b, glm4-9b, granite-8b).  For each config and each remat,
+``chip_smoke.train_steps``' step (full width, the config's bf16, AdamW
+with bf16 moments at ``--lr``, the config's batch of
+``chip_smoke.LLM_TRAIN``: 2 x 2048 for the three dense ones) at growing
+depths, one whole repeated unit at a time (recurrentgemma's (rec, rec,
+attn) group; deepseek-moe keeps its dense first layer), from the unit's
+smallest depth (or ``--start``'s; hubert-xlarge's full 48 by default)
+up to the config's own depth or the
 first out-of-memory (``--only``: the start depth alone).  Each depth
 prints its peak memory over ``--steps`` steps and at the start of the
 update (the forward's and backward's peak, ``chip_smoke.step_parts``),
 the last step's wall time and each step's loss, or where the
 out-of-memory struck (forward, backward, or the AdamW update) and what
-was allocated then; each family and remat the deepest depth whose peak
+was allocated then; each config and remat the deepest depth whose peak
 leaves ``chip_smoke.TRAIN_SPARE_GIB`` of the card free.  Then the card's
 name and power limit.  All in one process, the cache emptied between
 depths, the allocator's segments expandable (``--fixed-segments``: not),
@@ -82,7 +87,8 @@ def one_depth(dev, arch, remat, depth, steps, lr, at) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", default="deepseek-moe-16b,recurrentgemma-9b,"
-                                       "hubert-xlarge,internvl2-76b")
+                                       "hubert-xlarge,internvl2-76b,"
+                                       "deepseek-7b,glm4-9b,granite-8b")
     ap.add_argument("--remats", default="full,none")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--start", default=START)
